@@ -1,0 +1,284 @@
+"""Point Transformer V3 backbone (port of splatformer_tpu/models/ptv3.py,
+evaluation in float32).
+
+Block = xCPE (3^3 submanifold conv -> Linear -> BN, residual) -> LN ->
+serialized patch attention -> residual -> LN -> MLP -> residual.
+Serialized pooling clusters points by right-shifted SFC codes (segment max
+of the projected features), unpooling broadcasts back through the cluster
+map and adds the projected skip. Every stage has a static point capacity,
+with overflow clusters dropped into a waste bucket, as in the reference.
+
+Module and parameter names follow the flax model's, so data/convert.py maps
+a JAX checkpoint one to one. LayerNorm eps is flax's 1e-6 and GELU is the
+tanh approximation, as flax's defaults.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from splatformer_tpu_torch.models.layers import DropPath, MaskedBatchNorm, Mlp
+from splatformer_tpu_torch.models.point import PointBatch
+from splatformer_tpu_torch.ops.segment_ops import (pad_order_for_patches,
+                                                   segment_max, segment_mean)
+from splatformer_tpu_torch.ops.serialization import (INVALID_CODE, ORDERS,
+                                                     inverse_permutation)
+from splatformer_tpu_torch.ops.sparse_conv import (build_neighbor_map,
+                                                   sparse_conv_apply)
+
+_INT32_MAX = 2 ** 31 - 1
+LN_EPS = 1e-6  # flax nn.LayerNorm's default
+
+
+def merging_requested(additional_info: Optional[Dict[str, Any]]) -> bool:
+    info = additional_info or {}
+    return (info.get("tome", "base") not in ("base", None, "none")
+            and float(info.get("r", 0.0) or 0.0) > 0.0)
+
+
+class SerializedAttention(nn.Module):
+    """Attention within fixed-size patches of one serialized order: gather
+    by the (padded) order, batched softmax attention in f32, scatter back.
+    Plain matmuls and softmax, as the JAX package's einsum path computes
+    patch 128 in XLA outside any kernel."""
+
+    def __init__(self, channels: int, num_heads: int, patch_size: int,
+                 order_index: int):
+        super().__init__()
+        self.num_heads = num_heads
+        self.patch_size = patch_size
+        self.order_index = order_index
+        self.scale = (channels // num_heads) ** -0.5
+        self.qkv = nn.Linear(channels, 3 * channels)
+        self.proj = nn.Linear(channels, channels)
+
+    def forward(self, feat: torch.Tensor, pb: PointBatch) -> torch.Tensor:
+        n, c = feat.shape
+        k, h = self.patch_size, self.num_heads
+        if n % k:
+            raise ValueError(f"{n} points are not whole patches of {k}")
+        order = pad_order_for_patches(pb.order_perm[self.order_index],
+                                      pb.n_valid, k)
+        inverse = pb.inverse_perm[self.order_index]
+        qkv = self.qkv(feat)[order].reshape(n // k, k, 3, h, c // h)
+        q, kk, v = qkv.permute(2, 0, 3, 1, 4).unbind(0)     # (B, H, K, ch)
+        attn = torch.matmul(q * self.scale, kk.transpose(-1, -2))
+        attn = torch.softmax(attn.float(), dim=-1)
+        out = torch.matmul(attn, v)
+        out = out.permute(0, 2, 1, 3).reshape(n, c)[inverse]
+        return self.proj(out)
+
+
+class Block(nn.Module):
+    """xCPE + pre-LN attention + pre-LN MLP with droppath residuals."""
+
+    def __init__(self, channels: int, num_heads: int, patch_size: int,
+                 order_index: int, drop_path: float, mlp_ratio: float = 4.0):
+        super().__init__()
+        c = channels
+        # (27, Cin, Cout) in conv_offsets' row-major order, as the JAX param
+        self.cpe_conv_kernel = nn.Parameter(torch.empty(27, c, c))
+        self.cpe_conv_bias = nn.Parameter(torch.zeros(c))
+        self.cpe_linear = nn.Linear(c, c)
+        self.cpe_norm = MaskedBatchNorm(c)
+        self.norm1 = nn.LayerNorm(c, eps=LN_EPS)
+        self.attn = SerializedAttention(c, num_heads, patch_size, order_index)
+        self.norm2 = nn.LayerNorm(c, eps=LN_EPS)
+        self.mlp = Mlp(c, int(c * mlp_ratio), c)
+        self.drop_path = DropPath(drop_path)
+
+    def forward(self, pb: PointBatch, nbr: torch.Tensor) -> PointBatch:
+        feat = pb.feat
+        h = sparse_conv_apply(feat, nbr, self.cpe_conv_kernel,
+                              self.cpe_conv_bias)
+        feat = feat + self.cpe_norm(self.cpe_linear(h))
+        h = self.attn(self.norm1(feat), pb)
+        feat = feat + self.drop_path(h)
+        h = self.mlp(self.norm2(feat))
+        feat = feat + self.drop_path(h)
+        return pb.replace(feat=feat)
+
+
+class SerializedPooling(nn.Module):
+    """Grid pooling by right-shifted SFC codes of the first order. Returns the
+    pooled PointBatch (capacity ``child_capacity``) and the cluster map
+    (waste bucket = child_capacity) for unpooling."""
+
+    def __init__(self, in_channels: int, out_channels: int, stride: int):
+        super().__init__()
+        self.pooling_depth = max(0, int(math.ceil(math.log2(stride))))
+        self.proj = nn.Linear(in_channels, out_channels)
+        self.norm = MaskedBatchNorm(out_channels)
+
+    def forward(self, pb: PointBatch, child_capacity: int
+                ) -> Tuple[PointBatch, torch.Tensor]:
+        n, m = pb.num_points, child_capacity
+        dev = pb.feat.device
+        depth = self.pooling_depth
+        shift = depth * 3
+
+        sorted_idx = pb.order_perm[0].to(torch.int64)
+        sorted_codes = pb.codes[0][sorted_idx]
+        valid_sorted = torch.arange(n, device=dev) < pb.n_valid
+        shifted = torch.where(valid_sorted, sorted_codes >> shift,
+                              torch.full_like(sorted_codes, _INT32_MAX))
+        prev = torch.cat([shifted.new_full((1,), -1), shifted[:-1]])
+        is_head = valid_sorted & (shifted != prev)
+        cid_sorted = torch.cumsum(is_head, 0) - 1
+        n_clusters = is_head.sum()
+        # overflow and invalid points -> waste bucket m
+        cid_sorted = torch.where(valid_sorted & (cid_sorted < m), cid_sorted,
+                                 torch.full_like(cid_sorted, m))
+        cluster = torch.empty_like(cid_sorted).scatter_(0, sorted_idx,
+                                                        cid_sorted)
+
+        pf = self.proj(pb.feat)
+        child_feat = segment_max(pf, cluster, m + 1)[:m]
+        child_coord = segment_mean(pb.coord, cluster, m + 1)[:m]
+
+        # the head point of each cluster carries grid_coord and codes; the
+        # waste slot m takes every other write and is cut off
+        head_target = torch.where(is_head & (cid_sorted < m), cid_sorted,
+                                  torch.full_like(cid_sorted, m))
+        head_point = torch.zeros(m + 1, dtype=torch.int64, device=dev)
+        head_point = head_point.index_put_((head_target,), sorted_idx)[:m]
+        child_grid = pb.grid_coord[head_point] >> depth
+        child_codes = pb.codes[:, head_point] >> shift
+
+        child_n_valid = torch.clamp(n_clusters, max=m).to(torch.int32)
+        child_mask = torch.arange(m, device=dev) < child_n_valid
+        child_codes = torch.where(child_mask[None, :], child_codes,
+                                  torch.full_like(child_codes, INVALID_CODE))
+        child_order = torch.sort(child_codes, dim=-1, stable=True).indices
+
+        child_feat = F.gelu(self.norm(child_feat), approximate="tanh")
+        child = PointBatch(
+            coord=child_coord, grid_coord=child_grid, feat=child_feat,
+            mask=child_mask, n_valid=child_n_valid, codes=child_codes,
+            order_perm=child_order.to(torch.int32),
+            inverse_perm=inverse_permutation(child_order))
+        return child, cluster
+
+
+class SerializedUnpooling(nn.Module):
+    """Broadcast pooled features back through the cluster map and add the
+    projected skip; waste-bucket clusters contribute zero."""
+
+    def __init__(self, in_channels: int, skip_channels: int,
+                 out_channels: int):
+        super().__init__()
+        self.proj = nn.Linear(in_channels, out_channels)
+        self.proj_norm = MaskedBatchNorm(out_channels)
+        self.proj_skip = nn.Linear(skip_channels, out_channels)
+        self.proj_skip_norm = MaskedBatchNorm(out_channels)
+
+    def forward(self, child: PointBatch, parent: PointBatch,
+                cluster: torch.Tensor) -> PointBatch:
+        h = F.gelu(self.proj_norm(self.proj(child.feat)), approximate="tanh")
+        skip = F.gelu(self.proj_skip_norm(self.proj_skip(parent.feat)),
+                      approximate="tanh")
+        mc = child.feat.shape[0]
+        up = h[torch.clamp(cluster, 0, mc - 1)]
+        keep = (cluster < mc) & parent.mask
+        up = torch.where(keep[:, None], up, torch.zeros_like(up))
+        return parent.replace(feat=skip + up)
+
+
+def _round_up(x: int, mult: int) -> int:
+    return ((x + mult - 1) // mult) * mult
+
+
+class PointTransformerV3(nn.Module):
+    """The U-Net backbone with the MLP embedding (Linear -> BN -> GELU).
+    Defaults are PTv3-base's."""
+
+    def __init__(
+        self,
+        in_channels: int,
+        enc_depths: Sequence[int] = (2, 2, 2, 6, 2),
+        enc_channels: Sequence[int] = (64, 96, 128, 256, 512),
+        enc_num_head: Sequence[int] = (2, 4, 8, 16, 32),
+        enc_patch_size: Sequence[int] = (128, 128, 128, 128, 128),
+        dec_depths: Sequence[int] = (2, 2, 2, 2),
+        dec_channels: Sequence[int] = (96, 96, 128, 256),
+        dec_num_head: Sequence[int] = (4, 4, 8, 16),
+        dec_patch_size: Sequence[int] = (128, 128, 128, 128),
+        stride: Sequence[int] = (1, 2, 2, 2),
+        mlp_ratio: float = 4.0,
+        drop_path: float = 0.3,
+        pool_capacity_factors: Sequence[float] = (1.0, 0.75, 0.625, 0.5),
+    ):
+        super().__init__()
+        num_stages = len(enc_depths)
+        if num_stages != len(stride) + 1:
+            raise ValueError("need one stride per stage transition")
+        self.enc_depths = tuple(enc_depths)
+        self.dec_depths = tuple(dec_depths)
+        self.enc_patch_size = tuple(enc_patch_size)
+        self.dec_patch_size = tuple(dec_patch_size)
+        self.pool_capacity_factors = tuple(pool_capacity_factors)
+        self.out_channels = (dec_channels[0] if num_stages > 1
+                             else enc_channels[-1])
+
+        enc_dp = [float(x) for x in np.linspace(0, drop_path, sum(enc_depths))]
+        dec_dp = [float(x) for x in np.linspace(0, drop_path, sum(dec_depths))]
+
+        self.embed_linear = nn.Linear(in_channels, enc_channels[0])
+        self.embed_norm = MaskedBatchNorm(enc_channels[0])
+        for s in range(num_stages):
+            if s > 0:
+                self.add_module(f"enc{s}_down", SerializedPooling(
+                    enc_channels[s - 1], enc_channels[s], stride[s - 1]))
+            dps = enc_dp[sum(enc_depths[:s]):sum(enc_depths[:s + 1])]
+            for i in range(enc_depths[s]):
+                self.add_module(f"enc{s}_block{i}", Block(
+                    enc_channels[s], enc_num_head[s], enc_patch_size[s],
+                    i % len(ORDERS), dps[i], mlp_ratio))
+        dec_ch = list(dec_channels) + [enc_channels[-1]]
+        for s in reversed(range(num_stages - 1)):
+            self.add_module(f"dec{s}_up", SerializedUnpooling(
+                dec_ch[s + 1], enc_channels[s], dec_ch[s]))
+            dps = dec_dp[sum(dec_depths[:s]):sum(dec_depths[:s + 1])][::-1]
+            for i in range(dec_depths[s]):
+                self.add_module(f"dec{s}_block{i}", Block(
+                    dec_ch[s], dec_num_head[s], dec_patch_size[s],
+                    i % len(ORDERS), dps[i], mlp_ratio))
+
+    def forward(self, pb: PointBatch) -> torch.Tensor:
+        num_stages = len(self.enc_depths)
+        nbr0 = build_neighbor_map(pb.grid_coord, pb.mask)
+        h = F.gelu(self.embed_norm(self.embed_linear(pb.feat)),
+                   approximate="tanh")
+        pb = pb.replace(feat=h)
+
+        skips, clusters, stage_nbrs = [], [], []
+        for s in range(num_stages):
+            if s > 0:
+                patch_mult = max(
+                    self.enc_patch_size[s],
+                    self.dec_patch_size[min(s, len(self.dec_patch_size) - 1)])
+                cap = _round_up(
+                    max(patch_mult, int(pb.num_points
+                                        * self.pool_capacity_factors[s - 1])),
+                    patch_mult)
+                cap = min(cap, _round_up(pb.num_points, patch_mult))
+                child, cluster = self.get_submodule(f"enc{s}_down")(pb, cap)
+                clusters.append(cluster)
+                skips.append(pb)
+                pb = child
+            nbr = nbr0 if s == 0 else build_neighbor_map(pb.grid_coord,
+                                                         pb.mask)
+            stage_nbrs.append(nbr)
+            for i in range(self.enc_depths[s]):
+                pb = self.get_submodule(f"enc{s}_block{i}")(pb, nbr)
+
+        for s in reversed(range(num_stages - 1)):
+            pb = self.get_submodule(f"dec{s}_up")(pb, skips[s], clusters[s])
+            for i in range(self.dec_depths[s]):
+                pb = self.get_submodule(f"dec{s}_block{i}")(pb, stage_nbrs[s])
+        return pb.feat
