@@ -4,19 +4,40 @@
     python3 chip_smoke.py        # from the root of a checkout
 
 Phases, each printing one JSON line:
-  build     compile every CUDA kernel of the path from csrc/ (nvcc, sm_90a);
-  k1        the compositing kernel against its plain PyTorch version on the
-            entries that the port's own binning makes for a 100k-Gaussian
-            scene under 4 orbit views at 256^2 (limit 1e-5, walked counts
-            exact), with its time, the plain version's and its bound;
+  build     compile every CUDA kernel from csrc/ (one nvcc per source, all
+            started together, sm_90a);
+  k1        the compositing forward K1 against its plain PyTorch version on
+            the entries that the port's own binning makes for a
+            100k-Gaussian scene under 4 orbit views at 256^2 (limit 1e-5,
+            walked counts exact), with its time, the plain version's and
+            its bound;
+  k2        the compositing backward K2 against its plain version on the
+            same entries with a seeded random cotangent (T channel
+            included): each gradient row within 1e-4 of its own largest
+            magnitude, exact zeros outside the replayed ranges; times and
+            bound;
   reference a tiny FeaturePredictor eval step on the card against the same
             step on the CPU (plain versions), same seed and weights;
   serving   PTv3-base at full width, seeded random weights (final head
             layers scaled small), answering 3 eval requests of 100k
             Gaussians (padded to 100352) x 4 views at 256^2 each: latency
             after one warm-up, PSNR/SSIM against a render of the clean scene,
-            num_dropped, peak memory; every kernel's launch count over the
-            3 requests must be one per request.
+            num_dropped, peak memory; K1 launched once per request, K2
+            never;
+  train_reference  a tiny model (drop_path 0, a fixed order shuffle,
+            LPIPS from seeded random weights) on the card against the CPU:
+            2 f32 SGD steps, each from the same state (losses, every
+            parameter update, the BatchNorm running statistics); the
+            recipe's Adam for 2 steps fed the same gradients (every
+            update); one bf16 step (loss, update, size of the bf16
+            perturbation);
+  training  PTv3-base at full width in train mode (bf16 blocks, drop_path
+            0.3, zero-init heads), the recipe's Adam (lr 3e-5, eps 1e-15,
+            clip 2.0), L1 loss: one warm-up step, then 3 timed steps of
+            100k-Gaussian scenes x 4 views at 256^2; finite losses,
+            num_dropped 0, the heads updated, K1 and K2 launched once per
+            step.
+Launch counts are reset at the start of each phase and checked per phase.
 Then the {"kernels": [...]} line, the card's name and power limit, and as
 the last line {"ok": true, "device": {...}}. Any failure raises and exits
 non-zero; without a CUDA device it exits 1 before any phase.
@@ -33,7 +54,12 @@ SCENE_N = 100_000
 SCENE_PAD = 100_352
 VIEWS, HW = 4, 256
 REQUESTS = 3
+TRAIN_STEPS = 3
 K1_TOL = 1e-5
+# K2 vs its plain version, per gradient row relative to the row's largest
+# magnitude (tests/test_torch_kernels.py K2_TOL): the per-pixel values
+# round identically, only the order of the 256-pixel sums differs
+K2_TOL = 1e-4
 # published H100 SXM peaks (dense): FP32 outside the tensor cores, HBM3
 PEAK_F32 = 67e12
 PEAK_BYTES = 3.35e12
@@ -42,6 +68,17 @@ PEAK_BYTES = 3.35e12
 # (9), the 0.5 scale, the clamp, the negation, expf, the opacity product,
 # the alpha clamp, the threshold compare
 K1_OPS_PER_PAIR = 18
+# FP32 operations K2 needs, counted from this run's data (live_pairs):
+# every replayed (pixel, entry) pair recomputes sigma and alpha and compares
+# (K1's 18); a live pair (alpha >= threshold) adds g_rgb . c (5), vis (1),
+# the S update (2), d-alpha (5: product, sum, 1 - a, quotient, difference),
+# the T update (1), the max-alpha compare (1), d-rgb (3) and its 3 adds
+# into the entry's sums over pixels (21); a live pair below the max-alpha
+# clamp adds d-sigma (2), dx 4, dy 4, dconic 3 + 2 + 3, dopacity 1 and
+# their 6 adds into the sums (25)
+K2_OPS_PER_PAIR = 18
+K2_OPS_PER_LIVE = 21
+K2_OPS_PER_UNCLAMPED = 25
 
 
 def emit(obj):
@@ -117,6 +154,104 @@ def phase_k1():
         raise AssertionError(f"K1 disagrees with its plain version: {result}")
     if not (num_entries > 0 and float(out_k[..., 3].min()) < 0.5):
         raise AssertionError("K1 composited nothing")
+    return result
+
+
+def replayed_columns(tile_start, walked, budget):
+    """(budget,) bool: the entry columns some pixel of their tile replays,
+    [start, start + longest walk) of each tile."""
+    start = tile_start[:-1].long()
+    stop = start + walked.long().max(dim=1).values
+    edge = torch.zeros(budget + 1, dtype=torch.int64, device=start.device)
+    edge.index_add_(0, start, torch.ones_like(start))
+    edge.index_add_(0, stop, -torch.ones_like(stop))
+    return torch.cumsum(edge, 0)[:-1] > 0
+
+
+def live_pairs(packed_t, tile_start, tiles_x, tiles_img, walked,
+               alpha_threshold=1.0 / 255.0, max_alpha=0.999, chunk=64):
+    """(live, unclamped): the replayed (pixel, entry) pairs whose alpha
+    reaches the threshold, and those of them below the max-alpha clamp --
+    the pairs K2 differentiates, by composite_bwd_plain's ``live`` mask."""
+    dev = packed_t.device
+    num_tiles = tile_start.shape[0] - 1
+    start = tile_start[:-1].long()
+    local = torch.arange(num_tiles, device=dev) % tiles_img
+    p = torch.arange(256, device=dev)
+    px = ((local % tiles_x) * 16)[:, None] + (p % 16)[None, :]
+    py = (local // tiles_x * 16)[:, None] + (p // 16)[None, :]
+    px, py = px.float()[..., None], py.float()[..., None]
+    n_walk = walked.long()[..., None]
+    live = unclamped = 0
+    for base in range(0, int(n_walk.max()), chunk):
+        j = base + torch.arange(chunk, device=dev)
+        idx = (start[:, None] + j[None, :]).clamp(max=packed_t.shape[1] - 1)
+        e = packed_t[:6, idx]                                   # (6, T, C)
+        dx = e[0][:, None, :] - px                              # (T, P, C)
+        dy = e[1][:, None, :] - py
+        c0, c1, c2 = (e[k][:, None, :] for k in (2, 3, 4))
+        sigma = 0.5 * (c0 * dx * dx + c2 * dy * dy) + c1 * dx * dy
+        raw = e[5][:, None, :] * torch.exp(-torch.clamp(sigma, min=0.0))
+        on = (torch.clamp(raw, max=max_alpha) >= alpha_threshold) \
+            & (j[None, None, :] < n_walk)
+        live += int(on.sum())
+        unclamped += int((on & (raw < max_alpha)).sum())
+    return live, unclamped
+
+
+def phase_k2():
+    from splatformer_tpu_torch.data.synthetic import orbit_cameras, random_scene
+    from splatformer_tpu_torch.kernels.composite import (composite_bwd,
+                                                         composite_bwd_plain,
+                                                         composite_fwd)
+    from splatformer_tpu_torch.ops.render import prepare_entries
+    from splatformer_tpu_torch.ops.types import RasterizeConfig
+
+    scene = random_scene(np.random.default_rng(0), SCENE_N, sh_degree=1)
+    cams = orbit_cameras(VIEWS, HW, HW)
+    e = prepare_entries(scene, cams, RasterizeConfig())
+    tiles_x, tiles_img = HW // 16, (HW // 16) ** 2
+    out, walked = composite_fwd(e.packed_t, e.tile_start, tiles_x, tiles_img)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    g_out = torch.randn(out.shape, generator=gen, device="cuda")
+    args = (e.packed_t, e.tile_start, tiles_x, tiles_img, out, walked, g_out)
+
+    d_k = composite_bwd(*args)
+    torch.cuda.synchronize()
+    d_p = composite_bwd_plain(*args)
+    row_err = [float((d_k[r] - d_p[r]).abs().max())
+               / max(float(d_p[r].abs().max()), 1e-30) for r in range(9)]
+    max_abs_err = float((d_k - d_p).abs().max())
+    replayed = replayed_columns(e.tile_start, walked, e.packed_t.shape[1])
+    stray = int((d_k[:, ~replayed] != 0).sum() + (d_k[9:] != 0).sum())
+    ms = cuda_ms(lambda: composite_bwd(*args), 20)
+    plain_ms = cuda_ms(lambda: composite_bwd_plain(*args), 1)
+
+    num_entries = int(e.bins.num_entries)
+    num_tiles = e.tile_start.shape[0] - 1
+    pairs = int(walked.to(torch.int64).sum())   # K2 replays exactly these
+    live, unclamped = live_pairs(e.packed_t, e.tile_start, tiles_x,
+                                 tiles_img, walked)
+    ops = (K2_OPS_PER_PAIR * pairs + K2_OPS_PER_LIVE * live
+           + K2_OPS_PER_UNCLAMPED * unclamped)
+    nbytes = (9 * 4 * num_entries + 4 * (num_tiles + 1)
+              + num_tiles * 256 * (4 * 4 + 4 + 4 * 4)
+              + 16 * 4 * e.packed_t.shape[1])
+    ops_ms, bytes_ms = ops / PEAK_F32 * 1e3, nbytes / PEAK_BYTES * 1e3
+    result = {
+        "phase": "k2", "num_entries": num_entries, "num_tiles": num_tiles,
+        "max_abs_err": max_abs_err, "row_rel_err": row_err,
+        "replayed_columns": int(replayed.sum()), "stray_nonzeros": stray,
+        "pairs_replayed": pairs, "pairs_live": live,
+        "pairs_unclamped": unclamped, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": max(ops_ms, bytes_ms),
+        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+        "ops": ops, "bytes": nbytes}
+    emit(result)
+    if not (max(row_err) <= K2_TOL and stray == 0):
+        raise AssertionError(f"K2 disagrees with its plain version: {result}")
+    if not float(d_k[:9].abs().max()) > 0:
+        raise AssertionError("K2 produced no gradient")
     return result
 
 
@@ -196,7 +331,7 @@ def phase_serving():
     torch.cuda.synchronize()
 
     results = []
-    reset_launches()
+    reset_launches()  # the serving path's own count starts here
     for i, req in enumerate(requests):
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
@@ -222,10 +357,259 @@ def phase_serving():
         if not (r["finite"] and r["rgb_shape"] == [VIEWS, HW, HW, 3]
                 and all(np.isfinite(r["psnr"])) and all(np.isfinite(r["ssim"]))):
             raise AssertionError(f"bad eval output: {r}")
-    for name, count in launches.items():
-        if count != REQUESTS:
-            raise AssertionError(
-                f"kernel {name} launched {count} times in {REQUESTS} requests")
+    expected = {"composite_fwd": REQUESTS, "composite_bwd": 0}
+    if launches != expected:
+        raise AssertionError(f"serving launched {launches}, want {expected}")
+    return launches
+
+
+def train_delta_check(init, got, ref):
+    """Parameter updates of two runs from one ``init`` state_dict: each
+    tensor's update within 2e-3 of its largest plus 5e-4 of the model's
+    largest update (tensors whose gradient is rounding noise, a bias just
+    before a train-mode BatchNorm, are held by the second term; the card's
+    scatter-adds sum in a run-dependent order); running statistics within
+    1e-5. Returns (worst error as a share of its bound, that tensor's
+    name, worst statistics error)."""
+    deltas = {k: (got[k] - init[k], ref[k] - init[k]) for k in ref
+              if not k.endswith((".mean", ".var"))}
+    gmax = max(float(dr.abs().max()) for _, dr in deltas.values())
+    worst, worst_name = 0.0, ""
+    for k, (dg, dr) in deltas.items():
+        err = float((dg - dr).abs().max())
+        bound = 2e-3 * float(dr.abs().max()) + 5e-4 * gmax
+        if err / bound > worst:
+            worst, worst_name = err / bound, k
+        if err > bound:
+            raise AssertionError(f"{k}: update differs by {err} > {bound}")
+    stat_err = max(float((got[k] - ref[k]).abs().max()) for k in ref
+                   if k.endswith((".mean", ".var")))
+    if stat_err > 1e-5:
+        raise AssertionError(f"running statistics differ by {stat_err}")
+    return worst, worst_name, stat_err
+
+
+def state_of(model):
+    return {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+
+
+def flat_update(init, sd):
+    return torch.cat([(sd[k] - init[k]).ravel() for k in init
+                      if not k.endswith((".mean", ".var"))])
+
+
+def phase_train_reference():
+    """A tiny model (f32 unless stated, drop_path 0, a fixed order shuffle,
+    LPIPS on from seeded random weights) on the card against the CPU, from
+    the same weights and data:
+
+    * two SGD steps (lr 0.01 after the 2.0 clip), each from the same
+      state on both devices (the CPU's state is copied onto the card
+      before step 2): through the rasterizer's discrete culling a 1e-6 difference in one
+      weight already moves this random model's next loss by ~1e-5, so only
+      a shared start compares the step's own arithmetic. Losses within 1e-5
+      relative; updates by train_delta_check. SGD keeps each update
+      proportional to its gradient.
+    * the recipe's Adam (configs/train_default.py: lr 3e-5, eps 1e-15, clip
+      2.0), two steps on each device fed the same gradients (the CPU's of
+      the SGD steps) from the same state: updates by train_delta_check.
+      With eps 1e-15 Adam's first steps move a weight by about lr whatever
+      its gradient's size, so where a whole step's gradient is rounding
+      noise on both devices (a bias before a train-mode BatchNorm) the two
+      would step a full lr in opposite directions; shared gradients hold
+      the optimizer's own arithmetic, the card's multi-tensor ops.
+    * one SGD step with bfloat16 blocks from the initial state: the loss
+      within 1e-3 relative of the CPU's bf16 loss, the update at cosine >=
+      0.998 with the CPU's bf16 update (the CPU's bf16 and f32 updates
+      are at 0.9992, CPU run), and the card's bf16 update between 0.5 and
+      2 times as far from the CPU's f32 update as the CPU's bf16 update
+      is: the card perturbs the step as bf16 does, where an f32 step would
+      give ~0."""
+    from splatformer_tpu_torch.configs.train_default import \
+        get_config as train_config
+    from splatformer_tpu_torch.models.feature_predictor import (
+        build_feature_predictor)
+    from splatformer_tpu_torch.models.lpips import LPIPS
+    from splatformer_tpu_torch.training.optim import build_optimizer
+    from splatformer_tpu_torch.training.train_step import make_train_step
+    from splatformer_tpu_torch.ops.types import RasterizeConfig
+
+    lpips_gen = torch.Generator().manual_seed(11)
+    lpips_sd = {}
+    for k, v in LPIPS().state_dict().items():
+        draw = torch.randn(v.shape, generator=lpips_gen)
+        if k.endswith("weight"):
+            draw = draw / float(np.prod(v.shape[1:])) ** 0.5
+        elif k.startswith("lin"):
+            draw = draw.abs()
+        else:
+            draw = 0.01 * draw
+        lpips_sd[k] = draw
+    cfg = tiny_config()
+    cfg.backbone.drop_path = 0.0
+    perm = torch.tensor([2, 0, 3, 1])
+    tcfg = train_config()
+    oc = tcfg.optimizer
+    device = {"cpu": "cpu", "card": "cuda"}
+    batches = {r: make_request(7, 4096, 4000, 2, 64, d)
+               for r, d in device.items()}
+    lpips = {}
+    for r, d in device.items():
+        lpips[r] = LPIPS().to(d)
+        lpips[r].load_state_dict(lpips_sd)
+
+    def sgd_setup(r, compute_dtype=None):
+        model = build_feature_predictor(cfg, device=device[r], seed=1,
+                                        head_final_scale=0.1,
+                                        compute_dtype=compute_dtype)
+        opt = build_optimizer(model, {"base": 0.01, "backbone": 0.01},
+                              optimizer_type="sgd")
+        return model, make_train_step(model, opt, RasterizeConfig(),
+                                      lpips_loss_weight=0.5, lpips=lpips[r])
+
+    # SGD, f32
+    models, steps = {}, {}
+    for r in device:
+        models[r], steps[r] = sgd_setup(r)
+    init0 = state_of(models["cpu"])
+    losses = {r: [] for r in device}
+    grads, sd_step1 = [], None
+    loss_err, worst, worst_name, stat_err = 0.0, 0.0, "", 0.0
+    for i in range(2):
+        init = state_of(models["cpu"])
+        models["card"].load_state_dict(init)
+        m = {r: {k: float(v) for k, v in
+                 steps[r](batches[r], None, perm).items()} for r in device}
+        grads.append([torch.zeros_like(p) if p.grad is None
+                      else p.grad.detach().clone()
+                      for p in models["cpu"].parameters()])
+        for r in device:
+            losses[r].append(m[r]["total_loss"])
+        loss_err = max([loss_err] + [
+            abs(m["card"][k] - m["cpu"][k]) / max(abs(m["cpu"][k]), 1e-12)
+            for k in ("total_loss", "image_l1", "lpips")])
+        sd = {r: state_of(models[r]) for r in device}
+        if i == 0:
+            sd_step1 = sd["cpu"]
+        w, name, e = train_delta_check(init, sd["card"], sd["cpu"])
+        if w > worst:
+            worst, worst_name = w, name
+        stat_err = max(stat_err, e)
+
+    # the recipe's Adam, fed the same gradients on both devices
+    init = state_of(models["cpu"])
+    models["card"].load_state_dict(init)
+    for r, d in device.items():
+        adam = build_optimizer(models[r], dict(oc.lr_dict), oc.type, oc.eps,
+                               oc.schedule, tcfg.total_steps,
+                               oc.warmup_steps, tcfg.grad_clip_norm)
+        for g in grads:
+            for p, gi in zip(models[r].parameters(), g):
+                p.grad = gi.to(d)
+            adam.step()
+    adam_worst, adam_name, _ = train_delta_check(
+        init, state_of(models["card"]), state_of(models["cpu"]))
+
+    # one SGD step with bfloat16 blocks, from the first state
+    bf16_loss, bf16_update = {}, {}
+    for r in device:
+        model, step = sgd_setup(r, "bfloat16")
+        model.load_state_dict(init0)
+        bf16_loss[r] = float(step(batches[r], None, perm)["total_loss"])
+        bf16_update[r] = flat_update(init0, state_of(model))
+    bf16_loss_err = abs(bf16_loss["card"] - bf16_loss["cpu"]) / abs(
+        bf16_loss["cpu"])
+    u_card, u_cpu = bf16_update["card"], bf16_update["cpu"]
+    bf16_cos = float(u_card @ u_cpu / (u_card.norm() * u_cpu.norm()))
+    u_f32 = flat_update(init0, sd_step1)
+    bf16_ratio = float((u_card - u_f32).norm() / (u_cpu - u_f32).norm())
+
+    result = {"phase": "train_reference", "gaussians": 4096, "views": 2,
+              "hw": 64, "sgd": "lr 0.01, clip 2.0",
+              "loss_cpu": losses["cpu"], "loss_cuda": losses["card"],
+              "max_rel_loss_err": loss_err,
+              "worst_update_err_of_bound": worst,
+              "worst_update_tensor": worst_name,
+              "max_running_stat_err": stat_err,
+              "adam": f"lr {oc.lr_dict['base']}, eps {oc.eps}, "
+                      f"clip {tcfg.grad_clip_norm}, 2 steps",
+              "adam_worst_update_err_of_bound": adam_worst,
+              "adam_worst_update_tensor": adam_name,
+              "bf16_loss_cpu": bf16_loss["cpu"],
+              "bf16_loss_cuda": bf16_loss["card"],
+              "bf16_rel_loss_err": bf16_loss_err,
+              "bf16_update_cos": bf16_cos,
+              "bf16_perturbation_ratio": bf16_ratio}
+    emit(result)
+    if loss_err > 1e-5:
+        raise AssertionError(f"card and CPU losses differ: {result}")
+    if not (bf16_loss_err <= 1e-3 and bf16_cos >= 0.998
+            and 0.5 <= bf16_ratio <= 2.0):
+        raise AssertionError(f"card and CPU bf16 steps differ: {result}")
+
+
+def phase_training():
+    from splatformer_tpu_torch.configs.model_ptv3_base import get_config
+    from splatformer_tpu_torch.configs.train_default import \
+        get_config as train_config
+    from splatformer_tpu_torch.kernels import LAUNCHES, reset_launches
+    from splatformer_tpu_torch.models.feature_predictor import (
+        build_feature_predictor)
+    from splatformer_tpu_torch.training.optim import build_optimizer
+    from splatformer_tpu_torch.training.train_step import make_train_step
+
+    tcfg = train_config()
+    cfg = get_config()   # zeroinit=True and drop_path 0.3, as in the recipe
+    model = build_feature_predictor(
+        cfg, device="cuda", seed=0,
+        compute_dtype="bfloat16" if tcfg.bf16 else None)
+    n_params = sum(p.numel() for p in model.parameters())
+    oc = tcfg.optimizer
+    opt = build_optimizer(model, dict(oc.lr_dict), oc.type, oc.eps,
+                          oc.schedule, tcfg.total_steps, oc.warmup_steps,
+                          tcfg.grad_clip_norm)
+    step = make_train_step(model, opt,
+                           image_l1_loss_weight=tcfg.image_l1_loss_weight)
+    batches = [make_request(200 + i, SCENE_PAD, SCENE_N, VIEWS, HW, "cuda")
+               for i in range(TRAIN_STEPS + 1)]
+    gen = torch.Generator(device="cuda").manual_seed(tcfg.seed)
+    heads0 = {k: v.detach().clone() for k, v in model.named_parameters()
+              if k.startswith("head_")}
+    step(batches[0], gen)  # warm-up
+    torch.cuda.synchronize()
+
+    results = []
+    reset_launches()  # the training path's own count starts here
+    for i in range(TRAIN_STEPS):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        m = step(batches[i + 1], gen)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        r = {"phase": "training", "step": i, "ms": ms,
+             "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
+        r.update({k: float(v) for k, v in m.items()})
+        results.append(r)
+    launches = dict(LAUNCHES)
+    moved = max(float((p.detach() - heads0[k]).abs().max())
+                for k, p in model.named_parameters() if k in heads0)
+    for r in results:
+        emit(r)
+    emit({"phase": "training_summary", "model": "ptv3_base",
+          "compute_dtype": "bfloat16" if tcfg.bf16 else "float32",
+          "params": n_params, "steps": TRAIN_STEPS, "launches": launches,
+          "ms_mean": sum(r["ms"] for r in results) / TRAIN_STEPS,
+          "head_max_update": moved})
+    for r in results:
+        if not (all(np.isfinite(r[k]) for k in
+                    ("total_loss", "image_l1", "train_psnr"))
+                and r["num_dropped"] == 0):
+            raise AssertionError(f"bad train step: {r}")
+    if not moved > 0:
+        raise AssertionError("the heads did not move")
+    expected = {"composite_fwd": TRAIN_STEPS, "composite_bwd": TRAIN_STEPS}
+    if launches != expected:
+        raise AssertionError(f"training launched {launches}, want {expected}")
     return launches
 
 
@@ -237,8 +621,12 @@ def main():
 
     phase_build()
     k1 = phase_k1()
+    k2 = phase_k2()
     phase_reference()
-    launches = phase_serving()
+    phase_serving()
+    phase_train_reference()
+    torch.cuda.empty_cache()
+    launches = phase_training()  # this slice's main path
     emit({"kernels": [{
         "name": "composite_fwd", "route": "cuda",
         "source": "splatformer_tpu_torch/csrc/composite_fwd.cu",
@@ -247,6 +635,14 @@ def main():
         "max_abs_err": max(k1["max_abs_err_rgb"], k1["max_abs_err_T"]),
         "ms": k1["ms"], "plain_ms": k1["plain_ms"],
         "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
+        "library_ms": None}, {
+        "name": "composite_bwd", "route": "cuda",
+        "source": "splatformer_tpu_torch/csrc/composite_bwd.cu",
+        "replaces": "splatformer_tpu/ops/pallas/raster.py:367",
+        "launches": launches["composite_bwd"],
+        "max_abs_err": k2["max_abs_err"],
+        "ms": k2["ms"], "plain_ms": k2["plain_ms"],
+        "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
         "library_ms": None}]})
     smi = subprocess.run(
         ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",

@@ -1,4 +1,4 @@
-"""JAX checkpoint -> port state_dict.
+"""JAX checkpoint -> port state_dict, and LPIPS weights -> LPIPS state_dict.
 
 Takes the JAX package's FeaturePredictor ``params`` and ``batch_stats`` as
 nested dicts of numpy arrays (e.g. after ``jax.device_get``) and returns the
@@ -11,6 +11,9 @@ one to one apart from:
     in an output head;
   * MaskedBatchNorm ``scale``/``bias`` and its ``mean``/``var`` statistics,
     and the xCPE ``cpe_conv_kernel`` (27, Cin, Cout), keep name and layout.
+
+The port's ``batch_stats`` after a train step are its BatchNorm buffers
+under the same names, so the map holds in both directions.
 """
 from __future__ import annotations
 
@@ -60,4 +63,26 @@ def state_dict_from_flax(params: Mapping[str, Any],
                 leaf = "weight"
             sd[".".join(mod + [leaf])] = torch.tensor(arr,
                                                       dtype=torch.float32)
+    return sd
+
+
+def lpips_state_dict_from_npz(data: Mapping[str, Any]
+                              ) -> Dict[str, torch.Tensor]:
+    """LPIPS weights in the JAX package's npz layout (``vgg/conv{s}_{c}/
+    kernel`` HWIO, ``.../bias``, ``lin{s}``; an ``np.load`` result or a
+    dict) -> the port's LPIPS state_dict (``conv{s}_{c}.weight`` OIHW,
+    ``.bias``, ``lin{s}``)."""
+    sd: Dict[str, torch.Tensor] = {}
+    for key in data:
+        arr = np.asarray(data[key], np.float32)
+        parts = key.split("/")
+        if parts[0] == "vgg" and parts[-1] == "kernel":
+            sd[f"{parts[1]}.weight"] = torch.from_numpy(
+                np.ascontiguousarray(arr.transpose(3, 2, 0, 1)))
+        elif parts[0] == "vgg" and parts[-1] == "bias":
+            sd[f"{parts[1]}.bias"] = torch.from_numpy(arr)
+        elif len(parts) == 1 and re.fullmatch(r"lin\d", key):
+            sd[key] = torch.from_numpy(arr)
+        else:
+            raise KeyError(f"no LPIPS counterpart for {key}")
     return sd

@@ -22,7 +22,8 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
 
 # kernel library name -> source file under csrc/
-SOURCES = {"composite_fwd": "composite_fwd.cu"}
+SOURCES = {"composite_fwd": "composite_fwd.cu",
+           "composite_bwd": "composite_bwd.cu"}
 
 # -fmad=false: no contraction of a*b+c into one FMA, so each product and sum
 # rounds as the plain PyTorch version's separate elementwise ops do

@@ -1,10 +1,11 @@
-"""K1: tile alpha-compositing forward -- the CUDA kernel's wrapper and its plain
-PyTorch version.
+"""K1, tile alpha-compositing forward, and K2, its backward: the CUDA
+kernels' wrappers and their plain PyTorch versions.
 
-Replaces the Pallas TPU kernel ``fwd_kernel`` of
-splatformer_tpu/ops/pallas/raster.py; the kernel source is
-csrc/composite_fwd.cu, whose header states the contract, what bounds the
-kernel on Hopper and what its design does about it.
+Replace the Pallas TPU kernels ``fwd_kernel`` and ``bwd_kernel`` of
+splatformer_tpu/ops/pallas/raster.py; the kernel sources are
+csrc/composite_fwd.cu and csrc/composite_bwd.cu, whose headers state the
+contract, what bounds each kernel on Hopper and what its design does about
+it.
 
 Inputs: ``packed_t`` (16, budget) f32 depth-sorted entries, rows
 [x, y, conic0-2, opacity, r, g, b, pad...]; ``tile_start`` (num_tiles + 1,)
@@ -12,6 +13,8 @@ int32 unpadded per-tile ranges over V flattened views. Outputs: ``out``
 (num_tiles, 256, 4) f32 = [sum rgb, T] per pixel, and ``walked``
 (num_tiles, 256) int32, the number of leading entries of its tile's range
 each pixel consumed before it terminated (the range length if it never did).
+K2 takes those two and the cotangent of ``out`` and returns the gradient
+with respect to ``packed_t``.
 """
 from __future__ import annotations
 
@@ -148,3 +151,140 @@ def composite_fwd_plain(packed_t: torch.Tensor, tile_start: torch.Tensor,
             done |= cross
     out = torch.cat([rgb, T[..., None]], dim=-1)
     return out, walked
+
+
+def _library_bwd() -> ctypes.CDLL:
+    lib = load("composite_bwd")
+    fn = lib.composite_bwd
+    if fn.argtypes is None:
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        fn.argtypes = [p, ctypes.c_longlong, p, i, i, i, f, f, p, p, p, p, p]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def _check_saved(num_tiles: int, out: torch.Tensor, walked: torch.Tensor,
+                 g_out: torch.Tensor, device: torch.device) -> None:
+    for name, x, dtype, shape in (
+            ("out", out, torch.float32, (num_tiles, PIXELS, 4)),
+            ("walked", walked, torch.int32, (num_tiles, PIXELS)),
+            ("g_out", g_out, torch.float32, (num_tiles, PIXELS, 4))):
+        if x.dtype != dtype or tuple(x.shape) != shape or x.device != device:
+            raise ValueError(f"{name} must be {shape} {dtype} on {device}, "
+                             f"got {tuple(x.shape)} {x.dtype} on {x.device}")
+
+
+def composite_bwd(packed_t: torch.Tensor, tile_start: torch.Tensor,
+                  tiles_x: int, tiles_img: int, out: torch.Tensor,
+                  walked: torch.Tensor, g_out: torch.Tensor,
+                  alpha_threshold: float = 1.0 / 255.0,
+                  max_alpha: float = 0.999) -> torch.Tensor:
+    """K2: the gradient of K1's ``out`` with respect to ``packed_t``, given
+    K1's saved ``out`` and ``walked`` and the cotangent ``g_out``.
+
+    Returns ``d_packed`` (16, budget) f32, rows [dx, dy, dconic0-2,
+    dopacity, dr, dg, db] and exact zeros elsewhere: in rows 9-15 and in
+    every entry column that no pixel replayed. CUDA tensors launch the
+    kernel (or raise); CPU tensors take the plain version."""
+    num_tiles = _check(packed_t, tile_start, tiles_x, tiles_img)
+    _check_saved(num_tiles, out, walked, g_out, packed_t.device)
+    if packed_t.device.type == "cpu":
+        return composite_bwd_plain(packed_t, tile_start, tiles_x, tiles_img,
+                                   out, walked, g_out, alpha_threshold,
+                                   max_alpha)
+    if packed_t.device.type != "cuda":
+        raise ValueError(f"no composite_bwd for device {packed_t.device}")
+    packed_t = packed_t.contiguous()
+    d_packed = torch.zeros_like(packed_t)
+    stream = torch.cuda.current_stream(packed_t.device).cuda_stream
+    err = _library_bwd().composite_bwd(
+        packed_t.data_ptr(), packed_t.shape[1],
+        tile_start.contiguous().data_ptr(),
+        num_tiles, tiles_x, tiles_img, alpha_threshold, max_alpha,
+        out.contiguous().data_ptr(), walked.contiguous().data_ptr(),
+        g_out.contiguous().data_ptr(), d_packed.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"composite_bwd launch failed: cudaError {err}")
+    LAUNCHES["composite_bwd"] += 1
+    return d_packed
+
+
+def composite_bwd_plain(packed_t: torch.Tensor, tile_start: torch.Tensor,
+                        tiles_x: int, tiles_img: int, out: torch.Tensor,
+                        walked: torch.Tensor, g_out: torch.Tensor,
+                        alpha_threshold: float = 1.0 / 255.0,
+                        max_alpha: float = 0.999) -> torch.Tensor:
+    """The kernel's function in plain PyTorch, on any device: vectorised over
+    tiles and pixels, PLAIN_CHUNK entries at a time. Each pixel replays its
+    first ``walked`` entries with K1's operations, stepping the
+    transmittance and the remaining colour sum S entry by entry:
+
+        da = T_excl (g_rgb . c) - (S_total - sum_{i<=j} g_rgb . c_i vis_i
+                                   + g_T T_final) / (1 - a)
+
+    with S_total = g_rgb . rgb_acc from the saved output (gsplat's
+    back-to-front suffix sums recovered front to back). The max-alpha clamp
+    gates d-alpha (raw < max_alpha); the sigma clamp takes the full
+    derivative. Each entry's 9 values are summed over its tile's pixels."""
+    num_tiles = _check(packed_t, tile_start, tiles_x, tiles_img)
+    _check_saved(num_tiles, out, walked, g_out, packed_t.device)
+    dev = packed_t.device
+    d_packed = torch.zeros_like(packed_t)
+    start = tile_start[:-1].to(torch.int64)
+    length = (tile_start[1:] - tile_start[:-1]).to(torch.int64)
+    local = torch.arange(num_tiles, device=dev) % tiles_img
+    p = torch.arange(PIXELS, device=dev)
+    px = ((local % tiles_x) * TILE)[:, None] + (p % TILE)[None, :]
+    py = (torch.div(local, tiles_x, rounding_mode="floor") * TILE)[:, None] \
+        + torch.div(p, TILE, rounding_mode="floor")[None, :]
+    px = px.to(torch.float32)[:, :, None]
+    py = py.to(torch.float32)[:, :, None]
+
+    g0, g1, g2, g_t = g_out.unbind(-1)                         # (T, P)
+    o0, o1, o2, o_t = out.unbind(-1)
+    s_rem = g0 * o0 + g1 * o1 + g2 * o2
+    gt_term = g_t * o_t
+    T = torch.ones((num_tiles, PIXELS), dtype=torch.float32, device=dev)
+    n_walk = walked.to(torch.int64)
+    ent = packed_t[:USED_ROWS]
+    max_walk = int(n_walk.max()) if num_tiles else 0
+    for base in range(0, max_walk, PLAIN_CHUNK):
+        c_n = min(PLAIN_CHUNK, max_walk - base)
+        j = base + torch.arange(c_n, device=dev)
+        in_range = j[None, :] < length[:, None]                 # (T, C)
+        idx = torch.where(in_range, start[:, None] + j[None, :], 0)
+        e = ent[:, idx]                                         # (9, T, C)
+        dx = e[0][:, None, :] - px                              # (T, P, C)
+        dy = e[1][:, None, :] - py
+        c0, c1, c2 = (e[k][:, None, :] for k in (2, 3, 4))
+        sigma = 0.5 * (c0 * dx * dx + c2 * dy * dy) + c1 * dx * dy
+        sigma = torch.clamp(sigma, min=0.0)
+        ex = torch.exp(-sigma)
+        raw = e[5][:, None, :] * ex
+        alpha = torch.clamp(raw, max=max_alpha)
+        live = ((alpha >= alpha_threshold)
+                & (j[None, None, :] < n_walk[:, :, None]))
+        gc = (g0[..., None] * e[6][:, None, :]
+              + g1[..., None] * e[7][:, None, :]
+              + g2[..., None] * e[8][:, None, :])
+        da = torch.zeros_like(alpha)
+        vis = torch.zeros_like(alpha)
+        for c in range(c_n):
+            a, on = alpha[..., c], live[..., c]
+            v = a * T
+            s_rem = torch.where(on, s_rem - gc[..., c] * v, s_rem)
+            da[..., c] = torch.where(
+                on, T * gc[..., c] - (s_rem + gt_term) / (1.0 - a), 0.0)
+            vis[..., c] = torch.where(on, v, 0.0)
+            T = torch.where(on, T * (1.0 - a), T)
+        dsig = torch.where(live & (raw < max_alpha), -raw * da, 0.0)
+        rows = [dsig * (c0 * dx + c1 * dy),
+                dsig * (c1 * dx + c2 * dy),
+                0.5 * dsig * dx * dx,
+                dsig * dx * dy,
+                0.5 * dsig * dy * dy,
+                torch.where(live & (raw < max_alpha), da * ex, 0.0),
+                g0[..., None] * vis, g1[..., None] * vis, g2[..., None] * vis]
+        sums = torch.stack([r.sum(dim=1) for r in rows])         # (9, T, C)
+        d_packed[:USED_ROWS, idx[in_range]] = sums[:, in_range]
+    return d_packed

@@ -1,11 +1,15 @@
 """FeaturePredictor: Gaussian-attribute refinement heads over the PTv3
-backbone (port of splatformer_tpu/models/feature_predictor.py, evaluation).
+backbone (port of splatformer_tpu/models/feature_predictor.py).
 
 Input feature = the per-Gaussian attributes concatenated in the configured
 order; PTv3 over the means voxelised at grid_resolution; optional concat of
 the input features onto the backbone output; one ReLU MLP head per output
 attribute; residual ('res': in + act(head)) or direct ('dc') outputs;
 attributes not predicted are copied through, padded slots untouched.
+In training the four serialization orders are shuffled (a permutation
+drawn from the caller's generator, or given), DropPath draws from the same
+generator, and ``compute_dtype`` (bfloat16) applies inside the backbone's
+blocks; the heads stay float32.
 """
 from __future__ import annotations
 
@@ -21,6 +25,7 @@ from splatformer_tpu_torch.device import resolve_device
 from splatformer_tpu_torch.models.point import make_point_batch
 from splatformer_tpu_torch.models.ptv3 import (Block, PointTransformerV3,
                                                merging_requested)
+from splatformer_tpu_torch.ops.serialization import ORDERS
 from splatformer_tpu_torch.ops.types import GaussianScene
 
 ALL_FEATURES = ("means", "features_dc", "features_rest", "opacities",
@@ -65,6 +70,7 @@ class FeaturePredictor(nn.Module):
         max_scale_normalized: float = 1e-2,
         grid_resolution: int = 384,
         backbone_kwargs: Optional[Dict[str, Any]] = None,
+        compute_dtype: Optional[torch.dtype] = None,
     ):
         super().__init__()
         if output_features_type not in ("res", "dc"):
@@ -80,6 +86,7 @@ class FeaturePredictor(nn.Module):
         ch = feature_channels(sh_degree)
         in_ch = sum(ch[k] for k in self.input_features)
         self.backbone = PointTransformerV3(in_channels=in_ch,
+                                           compute_dtype=compute_dtype,
                                            **(backbone_kwargs or {}))
         head_in = self.backbone.out_channels + (in_ch if input_feat_to_mlp
                                                 else 0)
@@ -87,15 +94,30 @@ class FeaturePredictor(nn.Module):
             self.add_module(f"head_{f}", OutputHead(
                 head_in, ch[f], output_head_nlayer, output_head_width))
 
-    def forward(self, scene: GaussianScene) -> GaussianScene:
+    def forward(self, scene: GaussianScene,
+                generator: Optional[torch.Generator] = None,
+                order_perm: Optional[torch.Tensor] = None) -> GaussianScene:
+        """Refine ``scene``. In training, ``order_perm`` (a permutation of
+        the 4 orders) fixes the order shuffle, else it is drawn from
+        ``generator``, which DropPath also draws from; both are ignored in
+        evaluation."""
         mask = scene.valid_mask()
         n = scene.num_points
         feat = torch.cat([getattr(scene, k).reshape(n, -1)
                           for k in self.input_features], dim=1)
         feat = torch.where(mask[:, None], feat, torch.zeros_like(feat))
+        perm = None
+        if self.training:
+            perm = order_perm
+            if perm is None:
+                dev = generator.device if generator is not None else None
+                perm = torch.randperm(len(ORDERS), generator=generator,
+                                      device=dev)
+            perm = perm.to(device=mask.device, dtype=torch.int64)
         pb = make_point_batch(scene.means, feat, mask,
-                              grid_resolution=self.grid_resolution)
-        y = self.backbone(pb)
+                              grid_resolution=self.grid_resolution,
+                              order_shuffle=perm)
+        y = self.backbone(pb, generator)
         if self.input_feat_to_mlp:
             y = torch.cat([y, feat], dim=1)
 
@@ -152,10 +174,12 @@ def init_weights(model: FeaturePredictor, generator: torch.Generator,
 
 
 def build_feature_predictor(cfg: ModelConfig, device: str = "cuda",
-                            seed: int = 0, head_final_scale: float = 1.0
+                            seed: int = 0, head_final_scale: float = 1.0,
+                            compute_dtype: Optional[str] = None
                             ) -> FeaturePredictor:
     """FeaturePredictor from a ModelConfig, seeded, in eval mode, on
-    ``device``. Parts of the config the port does not run yet raise."""
+    ``device``; ``compute_dtype="bfloat16"`` is the blocks' dtype in
+    training. Parts of the config the port does not run yet raise."""
     device = resolve_device(device)
     b = cfg.backbone
     unported = []
@@ -186,7 +210,9 @@ def build_feature_predictor(cfg: ModelConfig, device: str = "cuda",
         res_feature_activation=dict(cfg.res_feature_activation),
         max_scale_normalized=cfg.max_scale_normalized,
         grid_resolution=cfg.grid_resolution,
-        backbone_kwargs=b.backbone_kwargs())
+        backbone_kwargs=b.backbone_kwargs(),
+        compute_dtype=(None if compute_dtype in (None, "float32")
+                       else getattr(torch, compute_dtype)))
     init_weights(model, torch.Generator().manual_seed(seed),
                  zeroinit=cfg.zeroinit, head_final_scale=head_final_scale)
     return model.eval().to(device)

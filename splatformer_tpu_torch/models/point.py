@@ -5,7 +5,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 
@@ -34,13 +34,15 @@ class PointBatch:
 def make_point_batch(coord: torch.Tensor, feat: torch.Tensor,
                      mask: torch.Tensor, grid_resolution: int = 384,
                      orders: Sequence[str] = ORDERS, depth: int = 10,
+                     order_shuffle: Optional[torch.Tensor] = None,
                      ) -> PointBatch:
     """grid_coord = floor(coord * grid_resolution), clipped to the depth's
-    range; orders are not shuffled (evaluation)."""
+    range; ``order_shuffle`` permutes the orders (training), None keeps
+    them (evaluation)."""
     grid_coord = torch.floor(coord * grid_resolution).to(torch.int32)
     grid_coord = torch.clamp(grid_coord, 0, (1 << depth) - 1)
     codes, order_perm, inverse_perm = serialize(grid_coord, mask, orders,
-                                                depth)
+                                                depth, perm=order_shuffle)
     return PointBatch(
         coord=coord, grid_coord=grid_coord, feat=feat, mask=mask,
         n_valid=mask.sum().to(torch.int32), codes=codes,

@@ -1,5 +1,4 @@
-"""Point Transformer V3 backbone (port of splatformer_tpu/models/ptv3.py,
-evaluation in float32).
+"""Point Transformer V3 backbone (port of splatformer_tpu/models/ptv3.py).
 
 Block = xCPE (3^3 submanifold conv -> Linear -> BN, residual) -> LN ->
 serialized patch attention -> residual -> LN -> MLP -> residual.
@@ -7,6 +6,16 @@ Serialized pooling clusters points by right-shifted SFC codes (segment max
 of the projected features), unpooling broadcasts back through the cluster
 map and adds the projected skip. Every stage has a static point capacity,
 with overflow clusters dropped into a waste bucket, as in the reference.
+
+Training uses the masked batch statistics, DropPath (rates linspace(0,
+drop_path, depth), each decoder stage's slice reversed) drawn from the
+caller's generator, and, with ``compute_dtype`` set, mixed precision inside
+the blocks only: the block input is cast to it, the conv, Linear and
+attention matmuls run in it, softmax, LayerNorm and BatchNorm statistics
+run in float32 with outputs in the compute dtype, and the residual stream
+leaves the block in the block's input dtype. Evaluation is float32. Blocks
+are not rematerialised: the JAX package remats them only to fit a TPU
+v5e's 16 GB.
 
 Module and parameter names follow the flax model's, so data/convert.py maps
 a JAX checkpoint one to one. LayerNorm eps is flax's 1e-6 and GELU is the
@@ -22,7 +31,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from splatformer_tpu_torch.models.layers import DropPath, MaskedBatchNorm, Mlp
+from splatformer_tpu_torch.models.layers import (DropPath, MaskedBatchNorm,
+                                                 Mlp, linear)
 from splatformer_tpu_torch.models.point import PointBatch
 from splatformer_tpu_torch.ops.segment_ops import (pad_order_for_patches,
                                                    segment_max, segment_mean)
@@ -43,9 +53,9 @@ def merging_requested(additional_info: Optional[Dict[str, Any]]) -> bool:
 
 class SerializedAttention(nn.Module):
     """Attention within fixed-size patches of one serialized order: gather
-    by the (padded) order, batched softmax attention in f32, scatter back.
-    Plain matmuls and softmax, as the JAX package's einsum path computes
-    patch 128 in XLA outside any kernel."""
+    by the (padded) order, batched softmax attention (softmax in f32),
+    scatter back. Plain matmuls and softmax, as the JAX package's einsum
+    path computes patch 128 in XLA outside any kernel."""
 
     def __init__(self, channels: int, num_heads: int, patch_size: int,
                  order_index: int):
@@ -57,7 +67,8 @@ class SerializedAttention(nn.Module):
         self.qkv = nn.Linear(channels, 3 * channels)
         self.proj = nn.Linear(channels, channels)
 
-    def forward(self, feat: torch.Tensor, pb: PointBatch) -> torch.Tensor:
+    def forward(self, feat: torch.Tensor, pb: PointBatch,
+                dtype: Optional[torch.dtype] = None) -> torch.Tensor:
         n, c = feat.shape
         k, h = self.patch_size, self.num_heads
         if n % k:
@@ -65,22 +76,30 @@ class SerializedAttention(nn.Module):
         order = pad_order_for_patches(pb.order_perm[self.order_index],
                                       pb.n_valid, k)
         inverse = pb.inverse_perm[self.order_index]
-        qkv = self.qkv(feat)[order].reshape(n // k, k, 3, h, c // h)
+        # index_select, not advanced indexing: its backward is an
+        # index_add_, where the indexing backward sorts
+        qkv = linear(self.qkv, feat, dtype).index_select(0, order.long())
+        qkv = qkv.reshape(n // k, k, 3, h, c // h)
         q, kk, v = qkv.permute(2, 0, 3, 1, 4).unbind(0)     # (B, H, K, ch)
-        attn = torch.matmul(q * self.scale, kk.transpose(-1, -2))
-        attn = torch.softmax(attn.float(), dim=-1)
+        # logits and softmax in f32 (the JAX einsum's preferred_element_type)
+        attn = torch.matmul((q * self.scale).float(),
+                            kk.transpose(-1, -2).float())
+        attn = torch.softmax(attn, dim=-1).to(v.dtype)
         out = torch.matmul(attn, v)
-        out = out.permute(0, 2, 1, 3).reshape(n, c)[inverse]
-        return self.proj(out)
+        out = out.permute(0, 2, 1, 3).reshape(n, c).index_select(
+            0, inverse.long())
+        return linear(self.proj, out, dtype)
 
 
 class Block(nn.Module):
     """xCPE + pre-LN attention + pre-LN MLP with droppath residuals."""
 
     def __init__(self, channels: int, num_heads: int, patch_size: int,
-                 order_index: int, drop_path: float, mlp_ratio: float = 4.0):
+                 order_index: int, drop_path: float, mlp_ratio: float = 4.0,
+                 compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
         c = channels
+        self.compute_dtype = compute_dtype
         # (27, Cin, Cout) in conv_offsets' row-major order, as the JAX param
         self.cpe_conv_kernel = nn.Parameter(torch.empty(27, c, c))
         self.cpe_conv_bias = nn.Parameter(torch.zeros(c))
@@ -92,16 +111,24 @@ class Block(nn.Module):
         self.mlp = Mlp(c, int(c * mlp_ratio), c)
         self.drop_path = DropPath(drop_path)
 
-    def forward(self, pb: PointBatch, nbr: torch.Tensor) -> PointBatch:
-        feat = pb.feat
-        h = sparse_conv_apply(feat, nbr, self.cpe_conv_kernel,
-                              self.cpe_conv_bias)
-        feat = feat + self.cpe_norm(self.cpe_linear(h))
-        h = self.attn(self.norm1(feat), pb)
-        feat = feat + self.drop_path(h)
-        h = self.mlp(self.norm2(feat))
-        feat = feat + self.drop_path(h)
-        return pb.replace(feat=feat)
+    def _layer_norm(self, norm: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
+        """Statistics and affine in float32, output in x's dtype."""
+        y = F.layer_norm(x.to(torch.float32), norm.normalized_shape,
+                         norm.weight, norm.bias, norm.eps)
+        return y.to(x.dtype)
+
+    def forward(self, pb: PointBatch, nbr: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> PointBatch:
+        dt = self.compute_dtype if self.training else None
+        feat = pb.feat if dt is None else pb.feat.to(dt)
+        h = sparse_conv_apply(feat, nbr, self.cpe_conv_kernel.to(feat.dtype),
+                              self.cpe_conv_bias.to(feat.dtype))
+        feat = feat + self.cpe_norm(linear(self.cpe_linear, h, dt), pb.mask)
+        h = self.attn(self._layer_norm(self.norm1, feat), pb, dt)
+        feat = feat + self.drop_path(h, generator)
+        h = self.mlp(self._layer_norm(self.norm2, feat), dt)
+        feat = feat + self.drop_path(h, generator)
+        return pb.replace(feat=feat.to(pb.feat.dtype))
 
 
 class SerializedPooling(nn.Module):
@@ -156,7 +183,8 @@ class SerializedPooling(nn.Module):
                                   torch.full_like(child_codes, INVALID_CODE))
         child_order = torch.sort(child_codes, dim=-1, stable=True).indices
 
-        child_feat = F.gelu(self.norm(child_feat), approximate="tanh")
+        child_feat = F.gelu(self.norm(child_feat, child_mask),
+                            approximate="tanh")
         child = PointBatch(
             coord=child_coord, grid_coord=child_grid, feat=child_feat,
             mask=child_mask, n_valid=child_n_valid, codes=child_codes,
@@ -179,11 +207,12 @@ class SerializedUnpooling(nn.Module):
 
     def forward(self, child: PointBatch, parent: PointBatch,
                 cluster: torch.Tensor) -> PointBatch:
-        h = F.gelu(self.proj_norm(self.proj(child.feat)), approximate="tanh")
-        skip = F.gelu(self.proj_skip_norm(self.proj_skip(parent.feat)),
-                      approximate="tanh")
+        h = F.gelu(self.proj_norm(self.proj(child.feat), child.mask),
+                   approximate="tanh")
+        skip = F.gelu(self.proj_skip_norm(self.proj_skip(parent.feat),
+                                          parent.mask), approximate="tanh")
         mc = child.feat.shape[0]
-        up = h[torch.clamp(cluster, 0, mc - 1)]
+        up = h.index_select(0, torch.clamp(cluster, 0, mc - 1).long())
         keep = (cluster < mc) & parent.mask
         up = torch.where(keep[:, None], up, torch.zeros_like(up))
         return parent.replace(feat=skip + up)
@@ -212,6 +241,7 @@ class PointTransformerV3(nn.Module):
         mlp_ratio: float = 4.0,
         drop_path: float = 0.3,
         pool_capacity_factors: Sequence[float] = (1.0, 0.75, 0.625, 0.5),
+        compute_dtype: Optional[torch.dtype] = None,
     ):
         super().__init__()
         num_stages = len(enc_depths)
@@ -238,7 +268,7 @@ class PointTransformerV3(nn.Module):
             for i in range(enc_depths[s]):
                 self.add_module(f"enc{s}_block{i}", Block(
                     enc_channels[s], enc_num_head[s], enc_patch_size[s],
-                    i % len(ORDERS), dps[i], mlp_ratio))
+                    i % len(ORDERS), dps[i], mlp_ratio, compute_dtype))
         dec_ch = list(dec_channels) + [enc_channels[-1]]
         for s in reversed(range(num_stages - 1)):
             self.add_module(f"dec{s}_up", SerializedUnpooling(
@@ -247,12 +277,13 @@ class PointTransformerV3(nn.Module):
             for i in range(dec_depths[s]):
                 self.add_module(f"dec{s}_block{i}", Block(
                     dec_ch[s], dec_num_head[s], dec_patch_size[s],
-                    i % len(ORDERS), dps[i], mlp_ratio))
+                    i % len(ORDERS), dps[i], mlp_ratio, compute_dtype))
 
-    def forward(self, pb: PointBatch) -> torch.Tensor:
+    def forward(self, pb: PointBatch,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         num_stages = len(self.enc_depths)
         nbr0 = build_neighbor_map(pb.grid_coord, pb.mask)
-        h = F.gelu(self.embed_norm(self.embed_linear(pb.feat)),
+        h = F.gelu(self.embed_norm(self.embed_linear(pb.feat), pb.mask),
                    approximate="tanh")
         pb = pb.replace(feat=h)
 
@@ -275,10 +306,12 @@ class PointTransformerV3(nn.Module):
                                                          pb.mask)
             stage_nbrs.append(nbr)
             for i in range(self.enc_depths[s]):
-                pb = self.get_submodule(f"enc{s}_block{i}")(pb, nbr)
+                pb = self.get_submodule(f"enc{s}_block{i}")(pb, nbr,
+                                                            generator)
 
         for s in reversed(range(num_stages - 1)):
             pb = self.get_submodule(f"dec{s}_up")(pb, skips[s], clusters[s])
             for i in range(self.dec_depths[s]):
-                pb = self.get_submodule(f"dec{s}_block{i}")(pb, stage_nbrs[s])
+                pb = self.get_submodule(f"dec{s}_block{i}")(
+                    pb, stage_nbrs[s], generator)
         return pb.feat

@@ -1,6 +1,7 @@
-"""Packed-entry compositing around the K1 kernel (port of the non-kernel parts
-of splatformer_tpu/ops/pallas/raster.py): the transposed entry pack, the
-entry gather (forward), and ``composite_packed``'s untile and background
+"""Packed-entry compositing around the K1 and K2 kernels (port of the
+non-kernel parts of splatformer_tpu/ops/pallas/raster.py): the transposed
+entry pack, the entry gather, the differentiable compositing function
+(K1 forward, K2 backward) and ``composite_packed``'s untile and background
 blend."""
 from __future__ import annotations
 
@@ -8,7 +9,8 @@ from typing import Tuple
 
 import torch
 
-from splatformer_tpu_torch.kernels.composite import composite_fwd
+from splatformer_tpu_torch.kernels.composite import (composite_bwd,
+                                                     composite_fwd)
 
 PACK_W = 16   # packed attribute rows (9 used)
 CHUNK = 128   # per-view Gaussian axis padded to a multiple of this
@@ -28,8 +30,38 @@ def pack_entries_t(xy, conic, color, opac) -> torch.Tensor:
 
 
 def gather_entries(pgauss_t: torch.Tensor, gidx: torch.Tensor) -> torch.Tensor:
-    """Per-Gaussian packed rows (PACK_W, N) -> per-entry (PACK_W, budget)."""
+    """Per-Gaussian packed rows (PACK_W, N) -> per-entry (PACK_W, budget).
+
+    Its autograd backward (``index_add_`` over the Gaussian axis) is the
+    function that the JAX package's sort-based segment-sum ``custom_vjp``
+    computes (a TPU scatter workaround). Padding and over-budget slots
+    resolve to Gaussian 0; they add nothing to its gradient because K2
+    leaves exact zeros in every entry column that no pixel replays."""
     return pgauss_t.index_select(1, gidx)
+
+
+class CompositePacked(torch.autograd.Function):
+    """Compositing of packed entries: K1 forward, K2 backward. Returns K1's
+    ``out`` (num_tiles, 256, 4) = [sum rgb, T]; the gradient flows to
+    ``packed_t`` only."""
+
+    @staticmethod
+    def forward(ctx, packed_t, tile_start, tiles_x, tiles_img,
+                alpha_threshold, max_alpha, transmittance_eps):
+        out, walked = composite_fwd(packed_t, tile_start, tiles_x, tiles_img,
+                                    alpha_threshold, max_alpha,
+                                    transmittance_eps)
+        ctx.save_for_backward(packed_t, tile_start, out, walked)
+        ctx.params = (tiles_x, tiles_img, alpha_threshold, max_alpha)
+        return out
+
+    @staticmethod
+    def backward(ctx, g_out):
+        packed_t, tile_start, out, walked = ctx.saved_tensors
+        tiles_x, tiles_img, athr, amax = ctx.params
+        d_packed = composite_bwd(packed_t, tile_start, tiles_x, tiles_img,
+                                 out, walked, g_out.contiguous(), athr, amax)
+        return d_packed, None, None, None, None, None, None
 
 
 def composite_packed(
@@ -49,9 +81,9 @@ def composite_packed(
     ts = tile_size
     tiles_x = (img_width + ts - 1) // ts
     tiles_y = (img_height + ts - 1) // ts
-    out, _ = composite_fwd(packed_t, tile_start.to(torch.int32),
-                           tiles_x, tiles_x * tiles_y,
-                           alpha_threshold, max_alpha, transmittance_eps)
+    out = CompositePacked.apply(packed_t, tile_start.to(torch.int32),
+                                tiles_x, tiles_x * tiles_y, alpha_threshold,
+                                max_alpha, transmittance_eps)
     v = num_images
     img = (out.reshape(v, tiles_y, tiles_x, ts, ts, 4)
            .permute(0, 1, 3, 2, 4, 5)

@@ -6,6 +6,8 @@ tiles: per-view activation, SH colours, projection and entry packing, then
 one binning sort, one entry gather and one launch of the K1 compositing
 kernel (kernels/composite.py) for the whole batch. There is one path; the
 device of the scene picks the kernel (CUDA) or its plain version (CPU).
+The render is differentiable in all six scene attributes: the backward of
+the compositing is the K2 kernel, the rest is autograd.
 """
 from __future__ import annotations
 
@@ -51,8 +53,9 @@ def compute_colors(scene: GaussianScene, campos: torch.Tensor) -> torch.Tensor:
                             device=viewdirs.device)
     viewdirs = torch.where(norm > 0, viewdirs / torch.clamp(norm, min=1e-12),
                            fallback)
-    rgb = sh_ops.eval_sh(degree, viewdirs, coeffs)
-    return torch.clamp(rgb + 0.5, min=0.0)
+    rgb = sh_ops.eval_sh(degree, viewdirs, coeffs) + 0.5
+    # maximum, not clamp: at a tie it splits the gradient as jnp.clip does
+    return torch.maximum(rgb, torch.zeros_like(rgb))
 
 
 class PackedEntries(NamedTuple):
@@ -129,7 +132,7 @@ def render_images_stats(
         alpha_threshold=config.alpha_threshold, max_alpha=config.max_alpha,
         transmittance_eps=config.transmittance_eps,
         num_images=cameras.c2w.shape[0])
-    rgb = torch.clamp(rgb, max=1.0)
+    rgb = torch.minimum(rgb, torch.ones_like(rgb))  # ties as jnp.clip
     stats = {"num_dropped": entries.bins.num_dropped,
              "num_entries": entries.bins.num_entries}
     return rgb, alpha[..., None], stats

@@ -7,7 +7,7 @@ to the tail, an invariant every consumer relies on.
 """
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -91,15 +91,19 @@ def inverse_permutation(perm: torch.Tensor) -> torch.Tensor:
 
 def serialize(grid_coord: torch.Tensor, mask: torch.Tensor,
               orders: Sequence[str] = ORDERS, depth: int = 10,
+              perm: Optional[torch.Tensor] = None,
               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(codes, order_perm, inverse_perm), each (num_orders, N) int32:
     codes[o, i] is point i's key (INVALID_CODE for padding), order_perm[o, j]
     the point at serialized position j (stable in the point index),
-    inverse_perm[o, i] the serialized position of point i."""
+    inverse_perm[o, i] the serialized position of point i. ``perm``
+    permutes the order axis (PTv3's shuffle_orders in training)."""
     if depth * 3 > 30:
         raise ValueError("int32 keys support depth <= 10")
     codes = torch.stack([encode(grid_coord, o, depth) for o in orders])
     codes = torch.where(mask[None, :], codes,
                         torch.full_like(codes, INVALID_CODE))
+    if perm is not None:
+        codes = codes[perm]
     order_perm = torch.sort(codes, dim=-1, stable=True).indices
     return codes, order_perm.to(torch.int32), inverse_permutation(order_perm)

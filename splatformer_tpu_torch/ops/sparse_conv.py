@@ -1,5 +1,5 @@
-"""Submanifold sparse 3D convolution over voxelised point sets (port of the
-forward of splatformer_tpu/ops/sparse_conv.py).
+"""Submanifold sparse 3D convolution over voxelised point sets (port of
+splatformer_tpu/ops/sparse_conv.py).
 
 The neighbour map resolves each point's offset voxel to the voxel's
 MIN-INDEX occupant (points sharing a voxel stay separate sites); the centre
@@ -18,6 +18,7 @@ import torch
 
 _COORD_BITS = 10  # voxel coords < 1024
 _INVALID_KEY = 2 ** 31 - 1
+MISSING_ROWS = 1024
 
 
 def pack_voxel_key(grid_coord: torch.Tensor, mask: torch.Tensor
@@ -74,13 +75,23 @@ def sparse_conv_apply(feat: torch.Tensor, nbr: torch.Tensor,
                       weight: torch.Tensor,
                       bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """sum_k feat[nbr[:, k]] @ weight[k] (+ bias); missing neighbours
-    contribute zero. feat (N, Cin), nbr (N, K), weight (K, Cin, Cout)."""
+    contribute zero. feat (N, Cin), nbr (N, K), weight (K, Cin, Cout).
+
+    Autograd gives the exact gradient: the gather's backward
+    (``index_add_``) sums each row's cotangents over every (point, offset)
+    that read it, which is what the JAX package's scatter-free custom_vjp
+    computes with voxel sums and a flipped gather (a TPU scatter
+    workaround)."""
     n, cin = feat.shape
     k = weight.shape[0]
-    # a zero row at index n stands in for every missing neighbour
-    table = torch.cat([feat, feat.new_zeros((1, cin))], dim=0)
-    idx = torch.where(nbr >= 0, nbr, n).to(torch.int64)
-    gathered = table[idx].reshape(n, k * cin)
+    # missing neighbours read one of MISSING_ROWS zero rows appended to the
+    # table, spread over them so that the backward's scatter-add does not
+    # pile millions of additions onto one row (most of the 27 neighbour
+    # voxels of a sparse cloud are empty)
+    table = torch.cat([feat, feat.new_zeros((MISSING_ROWS, cin))], dim=0)
+    spread = torch.arange(n * k, device=nbr.device).view(n, k) % MISSING_ROWS
+    idx = torch.where(nbr >= 0, nbr.to(torch.int64), n + spread)
+    gathered = table.index_select(0, idx.reshape(-1)).reshape(n, k * cin)
     out = gathered @ weight.reshape(k * cin, -1)
     if bias is not None:
         out = out + bias

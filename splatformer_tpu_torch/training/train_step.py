@@ -1,21 +1,26 @@
-"""The eval step (port of make_eval_step of
-splatformer_tpu/training/train_step.py): refine one scene with the
-FeaturePredictor, render its views, score them. One scene per call on one
-device; the JAX package's shard_map over a device mesh has no counterpart
-here. The train step belongs to the training slice (ROADMAP.md).
+"""The train and eval steps (port of splatformer_tpu/training/train_step.py).
+
+Train: refine one scene with the FeaturePredictor in train mode, render
+its views (the compositing backward is the K2 kernel), L1 (+ LPIPS) loss,
+backward, one optimizer step. Eval: refine, render, score. One scene per
+call on one device; the JAX package's shard_map and gradient pmean over a
+device mesh become DDP in a later slice (ROADMAP.md).
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
-from typing import Callable, Optional, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
 from splatformer_tpu_torch.models.feature_predictor import FeaturePredictor
+from splatformer_tpu_torch.models.lpips import LPIPS
 from splatformer_tpu_torch.ops.render import render_images_stats
 from splatformer_tpu_torch.ops.types import (Camera, GaussianScene,
                                              RasterizeConfig)
 from splatformer_tpu_torch.training.metrics import psnr, ssim
+from splatformer_tpu_torch.training.optim import ChainOptimizer
 
 
 @dataclass
@@ -51,3 +56,71 @@ def make_eval_step(model: Optional[FeaturePredictor],
                 ssim(rgb, batch.images), rstats["num_dropped"])
 
     return eval_step
+
+
+PRETRAIN_ATTRS = ("means", "scales", "quats", "opacities", "features_dc",
+                  "features_rest")
+
+
+def make_train_step(model: FeaturePredictor, optimizer: ChainOptimizer,
+                    raster_config: RasterizeConfig = RasterizeConfig(),
+                    image_l1_loss_weight: float = 1.0,
+                    lpips_loss_weight: float = 0.0,
+                    lpips: Optional[LPIPS] = None,
+                    pretrain: bool = False,
+                    pretrain_attrs: Sequence[str] = PRETRAIN_ATTRS,
+                    ) -> Callable[..., Dict[str, torch.Tensor]]:
+    """Returns step(batch, generator=None, order_perm=None) -> metrics.
+
+    The generator (on the batch's device) drives DropPath and the order
+    shuffle; ``order_perm`` fixes the shuffle. Metrics, as 0-d tensors:
+    ``total_loss``; with rendering ``image_l1``, ``train_psnr``,
+    ``num_dropped`` and, when LPIPS is on, ``lpips``; with ``pretrain``
+    (per-attribute L1 of the refined against the input attributes over
+    valid points, no rendering) ``pretrain_loss`` and ``pretrain/<attr>``.
+    LPIPS is on when its weight is positive and a model is given; its
+    parameters are frozen."""
+    use_lpips = lpips is not None and lpips_loss_weight > 0
+    if use_lpips:
+        lpips.requires_grad_(False)
+
+    def step(batch: SceneBatch, generator: Optional[torch.Generator] = None,
+             order_perm: Optional[torch.Tensor] = None
+             ) -> Dict[str, torch.Tensor]:
+        model.train()
+        optimizer.zero_grad()
+        refined = model(batch.scene, generator, order_perm)
+        metrics = {}
+        if pretrain:
+            mask = batch.scene.valid_mask()
+            denom = torch.clamp(mask.to(torch.float32).sum(), min=1.0)
+            loss = 0.0
+            for key in pretrain_attrs:
+                target = getattr(batch.scene, key).detach()
+                pred = getattr(refined, key)
+                m = mask.reshape((-1,) + (1,) * (pred.ndim - 1))
+                width = float(math.prod(pred.shape[1:]))
+                per_attr = (torch.sum(torch.abs(pred - target) * m)
+                            / (denom * width))
+                metrics[f"pretrain/{key}"] = per_attr.detach()
+                loss = loss + per_attr
+            metrics["pretrain_loss"] = loss.detach()
+        else:
+            rgb, _, rstats = render_images_stats(
+                refined, batch.cameras, batch.background, raster_config)
+            l1 = torch.mean(torch.abs(rgb - batch.images))
+            metrics["num_dropped"] = rstats["num_dropped"].to(torch.float32)
+            loss = image_l1_loss_weight * l1
+            metrics["image_l1"] = l1.detach()
+            metrics["train_psnr"] = torch.mean(psnr(rgb.detach(),
+                                                    batch.images))
+            if use_lpips:
+                lp = torch.mean(lpips(rgb, batch.images))
+                loss = loss + lpips_loss_weight * lp
+                metrics["lpips"] = lp.detach()
+        metrics["total_loss"] = loss.detach()
+        loss.backward()
+        optimizer.step()
+        return metrics
+
+    return step

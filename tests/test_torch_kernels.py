@@ -1,4 +1,5 @@
-"""The port's CUDA kernels on the card against their plain PyTorch versions.
+"""The port's CUDA kernels (K1 compositing forward, K2 its backward) on the
+card against their plain PyTorch versions.
 
 This file imports torch and the port only (no JAX), so it also runs where
 JAX is not installed. On a machine with an NVIDIA GPU and nvcc:
@@ -80,3 +81,84 @@ def test_composite_kernel_empty_and_ragged_tiles():
     assert float((out_k - out_p).abs().max()) <= 1e-5
     assert torch.equal(walked_k, walked_p)
     assert torch.all(out_k[0, :, 3] == 1.0) and torch.all(walked_k[0] == 0)
+
+
+# K2 against its plain version: every pixel's values round identically
+# (the kernel is built with -fmad=false), only the order of the sum over
+# a tile's 256 pixels differs, so each gradient row is held within 1e-4
+# of its own largest magnitude; outside the replayed ranges exactly 0.
+K2_TOL = 1e-4
+
+
+def _check_k2(packed, tile_start, tiles_x, tiles_img, seed):
+    from splatformer_tpu_torch.kernels.composite import (composite_bwd,
+                                                         composite_bwd_plain,
+                                                         composite_fwd)
+    out, walked = composite_fwd(packed, tile_start, tiles_x, tiles_img)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    g_out = torch.randn(out.shape, generator=gen, device="cuda")
+    before = LAUNCHES["composite_bwd"]
+    d_k = composite_bwd(packed, tile_start, tiles_x, tiles_img, out, walked,
+                        g_out)
+    torch.cuda.synchronize()
+    assert LAUNCHES["composite_bwd"] == before + 1
+    d_p = composite_bwd_plain(packed, tile_start, tiles_x, tiles_img, out,
+                              walked, g_out)
+    for r in range(9):
+        scale = float(d_p[r].abs().max())
+        assert scale > 0, r
+        assert float((d_k[r] - d_p[r]).abs().max()) <= K2_TOL * scale, r
+    # exact zeros outside each tile's replayed range [start, start + max
+    # walked) and in the pad rows
+    start = tile_start[:-1].long()
+    stop = start + walked.long().max(dim=1).values
+    edge = torch.zeros(packed.shape[1] + 1, dtype=torch.int64, device="cuda")
+    edge.index_add_(0, start, torch.ones_like(start))
+    edge.index_add_(0, stop, -torch.ones_like(stop))
+    replayed = torch.cumsum(edge, 0)[:-1] > 0
+    assert not bool(d_k[:, ~replayed].any()) and not bool(d_k[9:].any())
+    return walked
+
+
+@pytest.mark.cuda
+def test_composite_bwd_kernel_matches_plain_on_card():
+    """K2 on the card vs its plain version on the entries of a 20k-Gaussian
+    scene under 4 views at 128^2, with a random cotangent (T channel
+    included); one counted launch."""
+    _card()
+    from splatformer_tpu_torch.data.synthetic import orbit_cameras, random_scene
+    from splatformer_tpu_torch.ops.render import prepare_entries
+    from splatformer_tpu_torch.ops.types import RasterizeConfig
+    scene = random_scene(np.random.default_rng(0), 20_000, sh_degree=1)
+    e = prepare_entries(scene, orbit_cameras(4, 128, 128), RasterizeConfig())
+    _check_k2(e.packed_t, e.tile_start, 8, 64, seed=1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("opaque", [False, True], ids=["sparse", "opaque"])
+def test_composite_bwd_kernel_empty_and_ragged_tiles(opaque):
+    """An empty tile, ranges that are not multiples of the kernel's
+    128-entry batch, the max-alpha clamp active (opacity 1.0), pixels that
+    terminate, and with ``opaque`` tiles whose longest walk stops before
+    the range ends."""
+    _card()
+    rng = np.random.default_rng(2)
+    budget = 1408
+    packed = np.zeros((16, budget), np.float32)
+    end = 1300
+    packed[0:2, :end] = rng.uniform(0, 32, (2, end))
+    lo, hi = (0.005, 0.05) if opaque else (0.05, 0.5)
+    packed[2, :end] = rng.uniform(lo, hi, end)
+    packed[4, :end] = rng.uniform(lo, hi, end)
+    packed[3, :end] = rng.uniform(-0.2, 0.2, end) * np.sqrt(
+        packed[2, :end] * packed[4, :end])
+    packed[5, :end] = rng.uniform(0.5 if opaque else 0.1, 0.95, end)
+    packed[5, :end][rng.uniform(size=end) < 0.1] = 1.0
+    packed[6:9, :end] = rng.uniform(0, 1, (3, end))
+    tile_start = np.array([0, 0, 257, 900, 1300], np.int32)
+    walked = _check_k2(torch.from_numpy(packed).cuda(),
+                       torch.from_numpy(tile_start).cuda(), 2, 4, seed=3)
+    lengths = torch.from_numpy(np.diff(tile_start)).cuda()
+    assert bool((walked < lengths[:, None]).any())  # pixels terminate
+    if opaque:  # every tile stops before its range ends
+        assert bool((walked.max(dim=1).values < lengths)[1:].all())
