@@ -16,14 +16,28 @@ Phases, each printing one JSON line:
             included): each gradient row within 1e-4 of its own largest
             magnitude, exact zeros outside the replayed ranges; times and
             bound;
+  k3        the patch-attention forward K3-fwd against its plain version
+            at each (B, H, d) class of PTv3-base's flash path (patch 1024),
+            float32 and bfloat16, seeded q, k, v: o within K3_FWD_TOL of
+            its largest magnitude, lse within K3_LSE_TOL; its time, the
+            plain version's, its bound and, as a yardstick only, the time
+            of F.scaled_dot_product_attention on the same tensors;
+  k3_bwd    the same for the backward K3-bwd (dQ pass, then dK/dV pass)
+            with a seeded cotangent: each gradient within K3_BWD_TOL of its
+            largest magnitude; the yardstick is SDPA's forward + backward
+            less its forward;
   reference a tiny FeaturePredictor eval step on the card against the same
             step on the CPU (plain versions), same seed and weights;
+  reference_flash  the same with a tiny enable_flash model (patch 128,
+            head widths 16, 24 and 32): K3-fwd once a block;
   serving   PTv3-base at full width, seeded random weights (final head
             layers scaled small), answering 3 eval requests of 100k
             Gaussians (padded to 100352) x 4 views at 256^2 each: latency
             after one warm-up, PSNR/SSIM against a render of the clean scene,
             num_dropped, peak memory; K1 launched once per request, K2
             never;
+  serving_flash  the same with enable_flash (patch 1024): K1 once and
+            K3-fwd 22 times (once a block) per request, no K2, no K3-bwd;
   train_reference  a tiny model (drop_path 0, a fixed order shuffle,
             LPIPS from seeded random weights) on the card against the CPU:
             2 f32 SGD steps, each from the same state (losses, every
@@ -31,12 +45,17 @@ Phases, each printing one JSON line:
             recipe's Adam for 2 steps fed the same gradients (every
             update); one bf16 step (loss, update, size of the bf16
             perturbation);
+  train_reference_flash  one f32 SGD step of the tiny enable_flash model
+            from one state, card against CPU (loss, every update, the
+            running statistics): K3's backward in float32;
   training  PTv3-base at full width in train mode (bf16 blocks, drop_path
             0.3, zero-init heads), the recipe's Adam (lr 3e-5, eps 1e-15,
             clip 2.0), L1 loss: one warm-up step, then 3 timed steps of
             100k-Gaussian scenes x 4 views at 256^2; finite losses,
-            num_dropped 0, the heads updated, K1 and K2 launched once per
-            step.
+            num_dropped 0, the heads updated, peak memory under 60 GB, K1
+            and K2 launched once per step;
+  training_flash  the same with enable_flash (patch 1024): K1 and K2 once,
+            K3-fwd and K3-bwd 22 times each per step. The slice's main path.
 Launch counts are reset at the start of each phase and checked per phase.
 Then the {"kernels": [...]} line, the card's name and power limit, and as
 the last line {"ok": true, "device": {...}}. Any failure raises and exits
@@ -79,6 +98,29 @@ K1_OPS_PER_PAIR = 18
 K2_OPS_PER_PAIR = 18
 K2_OPS_PER_LIVE = 21
 K2_OPS_PER_UNCLAMPED = 25
+PEAK_MEM_GB = 60.0   # PERF.md section 2: a train step fits without remat
+
+# K3 on PTv3-base's flash path (patch 1024): shape class -> (B patches, H
+# heads, d, blocks a forward), from the padded 100352 points and the pooled
+# capacities of models/ptv3.py (pool factors 1, 0.75, 0.625, 0.5)
+K3_PATCH = 1024
+K3_CLASSES = {"enc0": (98, 2, 32, 2), "enc1_dec1_dec0": (98, 4, 24, 6),
+              "enc2_dec2": (74, 8, 16, 4), "enc3_dec3": (47, 16, 16, 8),
+              "enc4": (24, 32, 16, 2)}
+K3_BLOCKS = sum(c[3] for c in K3_CLASSES.values())   # 22 attention calls
+# K3 against its plain version, relative to the largest magnitude: float32
+# sums in another order (~1e-6, CPU emulation of the kernels' order);
+# bfloat16 also rounds P, dS and the outputs to bfloat16 in both, where a
+# float32 difference can flip a rounding (one bf16 ulp is 3.9e-3 relative)
+K3_FWD_TOL = {torch.float32: 2e-5, torch.bfloat16: 1e-2}
+K3_LSE_TOL = 2e-5    # absolute: lse is float32 from float32 logits
+K3_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# bf16 dense tensor-core peak (NVIDIA H100 SXM data sheet); exponentials on
+# the SFU: 16 a clock per SM (CUDA C++ Programming Guide, arithmetic
+# instruction throughput, compute capability 9.0) x 132 SMs x 1.98 GHz, the
+# clock of the 67 TFLOP/s FP32 peak
+PEAK_BF16 = 989e12
+PEAK_EXP = 16 * 132 * 1.98e9
 
 
 def emit(obj):
@@ -255,6 +297,120 @@ def phase_k2():
     return result
 
 
+def k3_inputs(b, h, d, dtype, seed):
+    """Seeded q, k, v and a cotangent of shape (b, h, K3_PATCH, d); q at
+    twice unit scale, so logits spread beyond N(0, 1)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v, do = (torch.randn((b, h, K3_PATCH, d), generator=gen,
+                               device="cuda") for _ in range(4))
+    return (2.0 * q).to(dtype), k.to(dtype), v.to(dtype), do.to(dtype)
+
+
+def k3_bound(b, h, d, dtype, backward):
+    """(ops ms, bytes ms, FLOPs, exponentials, bytes) of the least work:
+    forward 4 K^2 d FLOP per head (q k^T, P V), backward 2.5 times that (s,
+    dP, dV, dK, dQ), one exponential per (query, key) pair either way; each
+    input read once and each output written once (forward q, k, v -> o,
+    lse; backward q, k, v, o, do, lse -> dq, dk, dv). FLOPs at the FP32
+    peak in float32 and the tensor-core peak in bfloat16, exponentials at
+    the SFU rate: the larger of the two is the operations' time."""
+    pairs = b * h * K3_PATCH ** 2
+    flops = (10 if backward else 4) * pairs * d
+    tokens = b * h * K3_PATCH
+    esize = torch.tensor([], dtype=dtype).element_size()
+    nbytes = (8 if backward else 4) * tokens * d * esize + 4 * tokens
+    peak = PEAK_BF16 if dtype == torch.bfloat16 else PEAK_F32
+    ops_ms = max(flops / peak, pairs / PEAK_EXP) * 1e3
+    return ops_ms, nbytes / PEAK_BYTES * 1e3, flops, pairs, nbytes
+
+
+def phase_k3(backward=False):
+    """K3-fwd (or K3-bwd) against its plain version at every shape class,
+    float32 and bfloat16. Returns, per dtype, the sums over one forward's
+    K3_BLOCKS launches (each class times its blocks)."""
+    import torch.nn.functional as F
+    from splatformer_tpu_torch.kernels.attention import (attention_bwd,
+                                                         attention_bwd_plain,
+                                                         attention_fwd,
+                                                         attention_fwd_plain)
+    name = "k3_bwd" if backward else "k3"
+    totals = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "ops_ms": 0.0,
+               "bytes_ms": 0.0, "max_abs_err": 0.0, "max_rel_err": 0.0}
+        for i, (cls, (b, h, d, blocks)) in enumerate(K3_CLASSES.items()):
+            q, k, v, do = k3_inputs(b, h, d, dtype, seed=30 + i)
+            scale = d ** -0.5
+            if backward:
+                o, lse = attention_fwd(q, k, v, scale)
+                args = (q, k, v, o, lse, do, scale)
+                got = attention_bwd(*args)
+                torch.cuda.synchronize()
+                want = attention_bwd_plain(*args)
+                ms = cuda_ms(lambda: attention_bwd(*args), 10)
+                plain_ms = cuda_ms(lambda: attention_bwd_plain(*args), 2)
+                leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+                sdpa_fwd_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+                    *leaves, scale=scale), 10)
+                sdpa_fb_ms = cuda_ms(lambda: torch.autograd.grad(
+                    F.scaled_dot_product_attention(*leaves, scale=scale),
+                    leaves, do), 10)
+                library_ms = sdpa_fb_ms - sdpa_fwd_ms
+                extra = {}
+                ok_extra = True
+                tol = K3_BWD_TOL[dtype]
+            else:
+                got = attention_fwd(q, k, v, scale)
+                torch.cuda.synchronize()
+                want = attention_fwd_plain(q, k, v, scale)
+                lse_err = float((got[1] - want[1]).abs().max())
+                got, want = got[:1], want[:1]
+                ms = cuda_ms(lambda: attention_fwd(q, k, v, scale), 10)
+                plain_ms = cuda_ms(lambda: attention_fwd_plain(q, k, v, scale),
+                                   2)
+                library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+                    q, k, v, scale=scale), 10)
+                extra = {"lse_max_abs_err": lse_err}
+                ok_extra = lse_err <= K3_LSE_TOL
+                tol = K3_FWD_TOL[dtype]
+            abs_err = max(float((g.float() - w.float()).abs().max())
+                          for g, w in zip(got, want))
+            rel_err = max(float((g.float() - w.float()).abs().max())
+                          / max(float(w.float().abs().max()), 1e-30)
+                          for g, w in zip(got, want))
+            ops_ms, bytes_ms, flops, exps, nbytes = k3_bound(b, h, d, dtype,
+                                                             backward)
+            row = {"phase": name, "class": cls, "dtype": str(dtype)[6:],
+                   "B": b, "H": h, "K": K3_PATCH, "d": d,
+                   "blocks_per_forward": blocks, "max_abs_err": abs_err,
+                   "max_rel_err": rel_err, **extra, "ms": ms,
+                   "plain_ms": plain_ms, "library_ms": library_ms,
+                   "bound_ms": max(ops_ms, bytes_ms),
+                   "bound_by": "operations" if ops_ms >= bytes_ms
+                   else "bytes",
+                   "flops": flops, "exps": exps, "bytes": nbytes}
+            emit(row)
+            if not (rel_err <= tol and ok_extra):
+                raise AssertionError(f"{name} disagrees with its plain "
+                                     f"version: {row}")
+            for key, val in (("ms", ms), ("plain_ms", plain_ms),
+                             ("library_ms", library_ms), ("ops_ms", ops_ms),
+                             ("bytes_ms", bytes_ms)):
+                tot[key] += blocks * val
+            tot["max_abs_err"] = max(tot["max_abs_err"], abs_err)
+            tot["max_rel_err"] = max(tot["max_rel_err"], rel_err)
+            del q, k, v, do, got, want
+        tot["bound_ms"] = max(tot["ops_ms"], tot["bytes_ms"])
+        tot["bound_by"] = ("operations" if tot["ops_ms"] >= tot["bytes_ms"]
+                           else "bytes")
+        totals[str(dtype)[6:]] = tot
+        torch.cuda.empty_cache()
+    emit({"phase": f"{name}_summary",
+          "per": f"one forward pass: {K3_BLOCKS} launches at the flash "
+                 f"path's shapes", **totals})
+    return totals
+
+
 def tiny_config():
     from splatformer_tpu_torch.configs.model_ptv3_base import get_config
     cfg = get_config()
@@ -263,6 +419,17 @@ def tiny_config():
     b.dec_depths, b.dec_channels, b.dec_num_head = (1, 1), (16, 16), (2, 2)
     b.stride, b.pool_capacity_factors, b.patch_size = (1, 2), (1.0, 0.75), 64
     cfg.grid_resolution, cfg.zeroinit = 128, False
+    return cfg
+
+
+def tiny_flash_config():
+    """tiny_config with enable_flash at patch 128 and head widths 16, 24
+    and 32 (enc0, enc1 and dec1, enc2), the three of PTv3-base: 5 blocks."""
+    cfg = tiny_config()
+    b = cfg.backbone
+    b.enc_channels, b.enc_num_head = (32, 48, 64), (2, 2, 2)
+    b.dec_channels, b.dec_num_head = (32, 48), (2, 2)
+    b.patch_size, b.enable_flash = 128, True
     return cfg
 
 
@@ -285,40 +452,52 @@ def make_request(seed, n, n_valid, views, hw, device):
     return SceneBatch(scene=noisy, cameras=cams, images=gt, background=bg)
 
 
-def phase_reference():
+def phase_reference(flash=False):
+    from splatformer_tpu_torch.kernels import LAUNCHES, reset_launches
     from splatformer_tpu_torch.models.feature_predictor import (
         build_feature_predictor)
     from splatformer_tpu_torch.training.train_step import make_eval_step
+    cfg = tiny_flash_config() if flash else tiny_config()
     outs = {}
     for dev in ("cpu", "cuda"):
-        model = build_feature_predictor(tiny_config(), device=dev, seed=1,
+        model = build_feature_predictor(cfg, device=dev, seed=1,
                                         head_final_scale=0.1)
         batch = make_request(7, 4096, 4000, 2, 64, dev)
+        reset_launches()
         outs[dev] = [x.cpu() for x in make_eval_step(model)(batch)]
+    launches = dict(LAUNCHES)  # the card's run
     rgb_c, _, psnr_c, ssim_c, drop_c = outs["cpu"]
     rgb_g, _, psnr_g, ssim_g, drop_g = outs["cuda"]
-    result = {"phase": "reference", "gaussians": 4096, "views": 2, "hw": 64,
+    result = {"phase": "reference_flash" if flash else "reference",
+              "gaussians": 4096, "views": 2, "hw": 64,
               "max_abs_err_rgb": float((rgb_g - rgb_c).abs().max()),
               "psnr_cpu": psnr_c.tolist(), "psnr_cuda": psnr_g.tolist(),
               "ssim_cpu": ssim_c.tolist(), "ssim_cuda": ssim_g.tolist(),
-              "num_dropped": int(drop_g)}
+              "num_dropped": int(drop_g), "launches": launches}
     emit(result)
     if not (result["max_abs_err_rgb"] <= 1e-3
             and float((psnr_g - psnr_c).abs().max()) <= 1e-3
             and float((ssim_g - ssim_c).abs().max()) <= 1e-4
             and int(drop_g) == int(drop_c)):
         raise AssertionError(f"card and CPU eval steps disagree: {result}")
+    expected = {"composite_fwd": 1, "composite_bwd": 0,
+                "attention_fwd": 5 if flash else 0, "attention_bwd": 0}
+    if launches != expected:
+        raise AssertionError(f"{result['phase']} launched {launches}, "
+                             f"want {expected}")
 
 
-def phase_serving():
+def phase_serving(flash=False):
     from splatformer_tpu_torch.configs.model_ptv3_base import get_config
     from splatformer_tpu_torch.kernels import LAUNCHES, reset_launches
     from splatformer_tpu_torch.models.feature_predictor import (
         build_feature_predictor)
     from splatformer_tpu_torch.training.train_step import make_eval_step
 
+    name = "serving_flash" if flash else "serving"
     cfg = get_config()
     cfg.zeroinit = False
+    cfg.backbone.enable_flash = flash
     model = build_feature_predictor(cfg, device="cuda", seed=0,
                                     head_final_scale=0.01)
     n_params = sum(p.numel() for p in model.parameters())
@@ -339,7 +518,7 @@ def phase_serving():
         torch.cuda.synchronize()
         latency = (time.perf_counter() - t0) * 1e3
         results.append({
-            "phase": "serving", "request": i, "latency_ms": latency,
+            "phase": name, "request": i, "latency_ms": latency,
             "psnr": psnr.tolist(), "ssim": ssim.tolist(),
             "input_psnr_mean": input_psnr[i],
             "num_dropped": int(dropped),
@@ -350,16 +529,19 @@ def phase_serving():
     launches = dict(LAUNCHES)
     for r in results:
         emit(r)
-    emit({"phase": "serving_summary", "model": "ptv3_base",
+    emit({"phase": f"{name}_summary", "model": "ptv3_base",
+          "patch": 1024 if flash else 128,
           "params": n_params, "requests": REQUESTS, "launches": launches,
           "latency_ms_mean": sum(r["latency_ms"] for r in results) / REQUESTS})
     for r in results:
         if not (r["finite"] and r["rgb_shape"] == [VIEWS, HW, HW, 3]
                 and all(np.isfinite(r["psnr"])) and all(np.isfinite(r["ssim"]))):
             raise AssertionError(f"bad eval output: {r}")
-    expected = {"composite_fwd": REQUESTS, "composite_bwd": 0}
+    expected = {"composite_fwd": REQUESTS, "composite_bwd": 0,
+                "attention_fwd": K3_BLOCKS * REQUESTS if flash else 0,
+                "attention_bwd": 0}
     if launches != expected:
-        raise AssertionError(f"serving launched {launches}, want {expected}")
+        raise AssertionError(f"{name} launched {launches}, want {expected}")
     return launches
 
 
@@ -548,7 +730,70 @@ def phase_train_reference():
         raise AssertionError(f"card and CPU bf16 steps differ: {result}")
 
 
-def phase_training():
+def phase_train_reference_flash():
+    """One f32 SGD step (lr 0.01 after the 2.0 clip, drop_path 0, a fixed
+    order shuffle, L1 only) of the tiny enable_flash model from the same
+    state on the card and on the CPU: the loss within 1e-5 relative, every
+    update by train_delta_check. K3's forward and backward run once a block
+    on the card, in float32."""
+    from splatformer_tpu_torch.kernels import LAUNCHES, reset_launches
+    from splatformer_tpu_torch.models.feature_predictor import (
+        build_feature_predictor)
+    from splatformer_tpu_torch.ops.types import RasterizeConfig
+    from splatformer_tpu_torch.training.optim import build_optimizer
+    from splatformer_tpu_torch.training.train_step import make_train_step
+
+    cfg = tiny_flash_config()
+    cfg.backbone.drop_path = 0.0
+    perm = torch.tensor([2, 0, 3, 1])
+    loss, sd, init = {}, {}, None
+    for dev in ("cpu", "cuda"):
+        model = build_feature_predictor(cfg, device=dev, seed=1,
+                                        head_final_scale=0.1)
+        if init is None:
+            init = state_of(model)
+        model.load_state_dict(init)
+        opt = build_optimizer(model, {"base": 0.01, "backbone": 0.01},
+                              optimizer_type="sgd")
+        step = make_train_step(model, opt, RasterizeConfig())
+        batch = make_request(7, 4096, 4000, 2, 64, dev)
+        reset_launches()
+        loss[dev] = float(step(batch, None, perm)["total_loss"])
+        sd[dev] = state_of(model)
+    launches = dict(LAUNCHES)  # the card's step
+    loss_err = abs(loss["cuda"] - loss["cpu"]) / abs(loss["cpu"])
+    worst, worst_name, stat_err = train_delta_check(init, sd["cuda"],
+                                                    sd["cpu"])
+    result = {"phase": "train_reference_flash", "gaussians": 4096,
+              "views": 2, "hw": 64, "sgd": "lr 0.01, clip 2.0",
+              "loss_cpu": loss["cpu"], "loss_cuda": loss["cuda"],
+              "rel_loss_err": loss_err,
+              "worst_update_err_of_bound": worst,
+              "worst_update_tensor": worst_name,
+              "max_running_stat_err": stat_err, "launches": launches}
+    emit(result)
+    if loss_err > 1e-5:
+        raise AssertionError(f"card and CPU flash losses differ: {result}")
+    expected = {"composite_fwd": 1, "composite_bwd": 1, "attention_fwd": 5,
+                "attention_bwd": 5}
+    if launches != expected:
+        raise AssertionError(f"train_reference_flash launched {launches}, "
+                             f"want {expected}")
+
+
+def k3_entry(name, source, replaces, launches, totals):
+    """The kernels line's entry of a K3 kernel: its sums over one forward
+    pass's launches in bfloat16, the train step's type."""
+    t = totals["bfloat16"]
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": t["max_abs_err"], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "per": f"one forward pass: {K3_BLOCKS} launches, bfloat16"}
+
+
+def phase_training(flash=False):
     from splatformer_tpu_torch.configs.model_ptv3_base import get_config
     from splatformer_tpu_torch.configs.train_default import \
         get_config as train_config
@@ -558,8 +803,10 @@ def phase_training():
     from splatformer_tpu_torch.training.optim import build_optimizer
     from splatformer_tpu_torch.training.train_step import make_train_step
 
+    name = "training_flash" if flash else "training"
     tcfg = train_config()
     cfg = get_config()   # zeroinit=True and drop_path 0.3, as in the recipe
+    cfg.backbone.enable_flash = flash
     model = build_feature_predictor(
         cfg, device="cuda", seed=0,
         compute_dtype="bfloat16" if tcfg.bf16 else None)
@@ -586,7 +833,7 @@ def phase_training():
         m = step(batches[i + 1], gen)
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
-        r = {"phase": "training", "step": i, "ms": ms,
+        r = {"phase": name, "step": i, "ms": ms,
              "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
         r.update({k: float(v) for k, v in m.items()})
         results.append(r)
@@ -595,7 +842,8 @@ def phase_training():
                 for k, p in model.named_parameters() if k in heads0)
     for r in results:
         emit(r)
-    emit({"phase": "training_summary", "model": "ptv3_base",
+    emit({"phase": f"{name}_summary", "model": "ptv3_base",
+          "patch": 1024 if flash else 128,
           "compute_dtype": "bfloat16" if tcfg.bf16 else "float32",
           "params": n_params, "steps": TRAIN_STEPS, "launches": launches,
           "ms_mean": sum(r["ms"] for r in results) / TRAIN_STEPS,
@@ -603,13 +851,16 @@ def phase_training():
     for r in results:
         if not (all(np.isfinite(r[k]) for k in
                     ("total_loss", "image_l1", "train_psnr"))
-                and r["num_dropped"] == 0):
+                and r["num_dropped"] == 0
+                and r["peak_mem_gb"] < PEAK_MEM_GB):
             raise AssertionError(f"bad train step: {r}")
     if not moved > 0:
         raise AssertionError("the heads did not move")
-    expected = {"composite_fwd": TRAIN_STEPS, "composite_bwd": TRAIN_STEPS}
+    k3 = K3_BLOCKS * TRAIN_STEPS if flash else 0
+    expected = {"composite_fwd": TRAIN_STEPS, "composite_bwd": TRAIN_STEPS,
+                "attention_fwd": k3, "attention_bwd": k3}
     if launches != expected:
-        raise AssertionError(f"training launched {launches}, want {expected}")
+        raise AssertionError(f"{name} launched {launches}, want {expected}")
     return launches
 
 
@@ -622,11 +873,20 @@ def main():
     phase_build()
     k1 = phase_k1()
     k2 = phase_k2()
+    k3 = phase_k3()
+    k3_bwd = phase_k3(backward=True)
     phase_reference()
+    phase_reference(flash=True)
     phase_serving()
-    phase_train_reference()
     torch.cuda.empty_cache()
-    launches = phase_training()  # this slice's main path
+    phase_serving(flash=True)
+    phase_train_reference()
+    phase_train_reference_flash()
+    torch.cuda.empty_cache()
+    phase_training()
+    torch.cuda.empty_cache()
+    launches = phase_training(flash=True)  # this slice's main path
+    flash_src = "jax/experimental/pallas/ops/tpu/flash_attention.py"
     emit({"kernels": [{
         "name": "composite_fwd", "route": "cuda",
         "source": "splatformer_tpu_torch/csrc/composite_fwd.cu",
@@ -643,7 +903,15 @@ def main():
         "max_abs_err": k2["max_abs_err"],
         "ms": k2["ms"], "plain_ms": k2["plain_ms"],
         "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
-        "library_ms": None}]})
+        "library_ms": None},
+        k3_entry("attention_fwd",
+                 "splatformer_tpu_torch/csrc/attention_fwd.cu",
+                 f"{flash_src}:342 (called at "
+                 "splatformer_tpu/models/ptv3.py:118)", launches, k3),
+        k3_entry("attention_bwd",
+                 "splatformer_tpu_torch/csrc/attention_bwd.cu",
+                 f"{flash_src}:796 and :1146 (called at "
+                 "splatformer_tpu/models/ptv3.py:118)", launches, k3_bwd)]})
     smi = subprocess.run(
         ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],

@@ -47,7 +47,8 @@ class BackboneConfig:
             dec_patch_size=(patch,) * len(dec),
             stride=tuple(self.stride), mlp_ratio=self.mlp_ratio,
             drop_path=self.drop_path,
-            pool_capacity_factors=tuple(self.pool_capacity_factors))
+            pool_capacity_factors=tuple(self.pool_capacity_factors),
+            use_flash=self.enable_flash)
 
 
 @dataclass

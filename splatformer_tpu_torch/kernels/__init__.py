@@ -7,7 +7,8 @@ a run can show that its main path went through the kernels.
 """
 from __future__ import annotations
 
-LAUNCHES = {"composite_fwd": 0, "composite_bwd": 0}
+LAUNCHES = {"composite_fwd": 0, "composite_bwd": 0, "attention_fwd": 0,
+            "attention_bwd": 0}
 
 
 def reset_launches() -> None:

@@ -187,8 +187,6 @@ def build_feature_predictor(cfg: ModelConfig, device: str = "cuda",
         unported.append(f"backbone_type={cfg.backbone_type!r}")
     if cfg.output_head_type != "mlp-relu":
         unported.append(f"output_head_type={cfg.output_head_type!r}")
-    if b.enable_flash:
-        unported.append("enable_flash (K3, a hand-written attention kernel)")
     if b.turn_off_bn:
         unported.append("turn_off_bn")
     if b.embedding_type != "MLP":

@@ -31,6 +31,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from splatformer_tpu_torch.kernels.attention import FlashAttention
 from splatformer_tpu_torch.models.layers import (DropPath, MaskedBatchNorm,
                                                  Mlp, linear)
 from splatformer_tpu_torch.models.point import PointBatch
@@ -54,15 +55,19 @@ def merging_requested(additional_info: Optional[Dict[str, Any]]) -> bool:
 class SerializedAttention(nn.Module):
     """Attention within fixed-size patches of one serialized order: gather
     by the (padded) order, batched softmax attention (softmax in f32),
-    scatter back. Plain matmuls and softmax, as the JAX package's einsum
-    path computes patch 128 in XLA outside any kernel."""
+    scatter back. With ``use_flash`` (the ``enable_flash`` configurations,
+    patch 1024) the attention is K3, ``FlashAttention`` over (B, H, K, d)
+    with ``scale`` on the logits, as the JAX package's Pallas flash path;
+    otherwise plain matmuls and softmax, as its einsum path, which XLA
+    computes outside any kernel."""
 
     def __init__(self, channels: int, num_heads: int, patch_size: int,
-                 order_index: int):
+                 order_index: int, use_flash: bool = False):
         super().__init__()
         self.num_heads = num_heads
         self.patch_size = patch_size
         self.order_index = order_index
+        self.use_flash = use_flash
         self.scale = (channels // num_heads) ** -0.5
         self.qkv = nn.Linear(channels, 3 * channels)
         self.proj = nn.Linear(channels, channels)
@@ -81,11 +86,15 @@ class SerializedAttention(nn.Module):
         qkv = linear(self.qkv, feat, dtype).index_select(0, order.long())
         qkv = qkv.reshape(n // k, k, 3, h, c // h)
         q, kk, v = qkv.permute(2, 0, 3, 1, 4).unbind(0)     # (B, H, K, ch)
-        # logits and softmax in f32 (the JAX einsum's preferred_element_type)
-        attn = torch.matmul((q * self.scale).float(),
-                            kk.transpose(-1, -2).float())
-        attn = torch.softmax(attn, dim=-1).to(v.dtype)
-        out = torch.matmul(attn, v)
+        if self.use_flash:
+            out = FlashAttention.apply(q, kk, v, self.scale)
+        else:
+            # logits and softmax in f32 (the JAX einsum's
+            # preferred_element_type)
+            attn = torch.matmul((q * self.scale).float(),
+                                kk.transpose(-1, -2).float())
+            attn = torch.softmax(attn, dim=-1).to(v.dtype)
+            out = torch.matmul(attn, v)
         out = out.permute(0, 2, 1, 3).reshape(n, c).index_select(
             0, inverse.long())
         return linear(self.proj, out, dtype)
@@ -96,7 +105,8 @@ class Block(nn.Module):
 
     def __init__(self, channels: int, num_heads: int, patch_size: int,
                  order_index: int, drop_path: float, mlp_ratio: float = 4.0,
-                 compute_dtype: Optional[torch.dtype] = None):
+                 compute_dtype: Optional[torch.dtype] = None,
+                 use_flash: bool = False):
         super().__init__()
         c = channels
         self.compute_dtype = compute_dtype
@@ -106,7 +116,8 @@ class Block(nn.Module):
         self.cpe_linear = nn.Linear(c, c)
         self.cpe_norm = MaskedBatchNorm(c)
         self.norm1 = nn.LayerNorm(c, eps=LN_EPS)
-        self.attn = SerializedAttention(c, num_heads, patch_size, order_index)
+        self.attn = SerializedAttention(c, num_heads, patch_size, order_index,
+                                        use_flash)
         self.norm2 = nn.LayerNorm(c, eps=LN_EPS)
         self.mlp = Mlp(c, int(c * mlp_ratio), c)
         self.drop_path = DropPath(drop_path)
@@ -242,6 +253,7 @@ class PointTransformerV3(nn.Module):
         drop_path: float = 0.3,
         pool_capacity_factors: Sequence[float] = (1.0, 0.75, 0.625, 0.5),
         compute_dtype: Optional[torch.dtype] = None,
+        use_flash: bool = False,
     ):
         super().__init__()
         num_stages = len(enc_depths)
@@ -268,7 +280,8 @@ class PointTransformerV3(nn.Module):
             for i in range(enc_depths[s]):
                 self.add_module(f"enc{s}_block{i}", Block(
                     enc_channels[s], enc_num_head[s], enc_patch_size[s],
-                    i % len(ORDERS), dps[i], mlp_ratio, compute_dtype))
+                    i % len(ORDERS), dps[i], mlp_ratio, compute_dtype,
+                    use_flash))
         dec_ch = list(dec_channels) + [enc_channels[-1]]
         for s in reversed(range(num_stages - 1)):
             self.add_module(f"dec{s}_up", SerializedUnpooling(
@@ -277,7 +290,8 @@ class PointTransformerV3(nn.Module):
             for i in range(dec_depths[s]):
                 self.add_module(f"dec{s}_block{i}", Block(
                     dec_ch[s], dec_num_head[s], dec_patch_size[s],
-                    i % len(ORDERS), dps[i], mlp_ratio, compute_dtype))
+                    i % len(ORDERS), dps[i], mlp_ratio, compute_dtype,
+                    use_flash))
 
     def forward(self, pb: PointBatch,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:

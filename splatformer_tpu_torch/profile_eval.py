@@ -1,20 +1,23 @@
 """Where the time of one eval request goes on the card.
 
-    python -m splatformer_tpu_torch.profile_eval      # needs an NVIDIA GPU
+    python -m splatformer_tpu_torch.profile_eval [--flash]  # needs a GPU
 
 Builds chip_smoke.py's serving configuration (PTv3-base at full width,
 seeded random weights, one request of 100k Gaussians padded to 100352 x 4
-views at 256^2), then prints JSON lines:
+views at 256^2; ``--flash``: enable_flash, patch 1024 through K3), then
+prints JSON lines:
   stages    median ms (CUDA events, 5 runs after a warm-up) of the refine
             (FeaturePredictor), the render's entry preparation (activation,
             SH, projection, binning, gather), the compositing (K1 + untile),
             the metrics, and the whole eval step;
   profile   torch.profiler over one eval step: the summed device time of
-            all kernels, the wall time, the device's busy share, and the
-            ten kernels with the most device time.
+            all kernels, the wall time, the device's busy share, the
+            device time of K1 and K3-fwd, and the ten kernels with the most
+            device time.
 """
 from __future__ import annotations
 
+import argparse
 import json
 import statistics
 import subprocess
@@ -45,7 +48,19 @@ def _device_time_us(evt) -> float:
     return 0.0
 
 
-def main() -> None:
+def flash_flag(description: str) -> bool:
+    parser = argparse.ArgumentParser(description=description)
+    parser.add_argument("--flash", action="store_true",
+                        help="PTv3-base with enable_flash (patch 1024, K3)")
+    return parser.parse_args().flash
+
+
+def kernel_ms(kernels, part: str) -> float:
+    """Summed device ms of the profiled kernels whose name holds ``part``."""
+    return sum(_device_time_us(e) for e in kernels if part in e.key) / 1e3
+
+
+def main(flash: bool = False) -> None:
     from splatformer_tpu_torch.configs.model_ptv3_base import get_config
     from splatformer_tpu_torch.data.synthetic import orbit_cameras, random_scene
     from splatformer_tpu_torch.models.feature_predictor import (
@@ -60,6 +75,7 @@ def main() -> None:
 
     cfg = get_config()
     cfg.zeroinit = False
+    cfg.backbone.enable_flash = flash
     model = build_feature_predictor(cfg, device="cuda", seed=0,
                                     head_final_scale=0.01)
     scene = random_scene(np.random.default_rng(100), 100_352, sh_degree=1,
@@ -87,7 +103,8 @@ def main() -> None:
             "metrics_ms": _ms(lambda: (psnr(rgb, gt), ssim(rgb, gt))),
             "eval_step_ms": _ms(lambda: step(batch)),
         }
-    print(json.dumps({"phase": "stages", **stages}), flush=True)
+    print(json.dumps({"phase": "stages", "flash": flash, **stages}),
+          flush=True)
 
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
@@ -106,6 +123,8 @@ def main() -> None:
         "phase": "profile", "wall_ms": wall_ms,
         "device_kernel_ms": device_ms if kernels else "not measured",
         "device_busy_share": device_ms / wall_ms if kernels else "not measured",
+        "k1_ms": kernel_ms(kernels, "composite_fwd_kernel"),
+        "k3_fwd_ms": kernel_ms(kernels, "attention_fwd_kernel"),
         "top_kernels": [{"name": e.key[:90], "ms": _device_time_us(e) / 1e3,
                          "calls": e.count} for e in kernels[:10]]}),
         flush=True)
@@ -117,6 +136,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
+    use_flash = flash_flag("Where the time of one eval request goes.")
     if not torch.cuda.is_available():
         raise SystemExit("profile_eval needs an NVIDIA GPU")
-    main()
+    main(use_flash)

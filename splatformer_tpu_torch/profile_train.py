@@ -1,11 +1,11 @@
 """Where the time of one train step goes on the card.
 
-    python -m splatformer_tpu_torch.profile_train     # needs an NVIDIA GPU
+    python -m splatformer_tpu_torch.profile_train [--flash]  # needs a GPU
 
 Builds chip_smoke.py's training configuration (PTv3-base at full width,
 bf16 blocks, drop_path 0.3, zero-init heads, the recipe's Adam; one scene
-of 100k Gaussians padded to 100352 x 4 views at 256^2, L1 loss), then
-prints JSON lines:
+of 100k Gaussians padded to 100352 x 4 views at 256^2, L1 loss;
+``--flash``: enable_flash, patch 1024 through K3), then prints JSON lines:
   stages    median ms (CUDA events, 3 runs after a warm-up) of the refine
             forward (train mode, autograd on), the render forward, the
             render backward (K2 and the autograd of projection, SH and the
@@ -14,8 +14,8 @@ prints JSON lines:
             and heads' share is the step less the other stages;
   profile   torch.profiler over one train step: the summed device time of
             all kernels, the wall time, the device's busy share, the
-            device time of K1 and K2, and the ten kernels with the most
-            device time.
+            device time of K1, K2, K3-fwd and K3-bwd (its dQ and dK/dV
+            passes), and the ten kernels with the most device time.
 """
 from __future__ import annotations
 
@@ -26,13 +26,14 @@ import time
 import numpy as np
 import torch
 
-from splatformer_tpu_torch.profile_eval import _device_time_us, _ms
+from splatformer_tpu_torch.profile_eval import (_device_time_us, _ms,
+                                                flash_flag, kernel_ms)
 
 ATTRS = ("means", "scales", "quats", "opacities", "features_dc",
          "features_rest")
 
 
-def main() -> None:
+def main(flash: bool = False) -> None:
     from splatformer_tpu_torch.configs.model_ptv3_base import get_config
     from splatformer_tpu_torch.configs.train_default import \
         get_config as train_config
@@ -46,7 +47,9 @@ def main() -> None:
                                                            make_train_step)
 
     tcfg = train_config()
-    model = build_feature_predictor(get_config(), device="cuda", seed=0,
+    cfg = get_config()
+    cfg.backbone.enable_flash = flash
+    model = build_feature_predictor(cfg, device="cuda", seed=0,
                                     compute_dtype="bfloat16")
     oc = tcfg.optimizer
     opt = build_optimizer(model, dict(oc.lr_dict), oc.type, oc.eps,
@@ -98,7 +101,8 @@ def main() -> None:
     stages["backbone_and_heads_fwd_bwd_ms"] = (
         stages["train_step_ms"] - stages["render_fwd_bwd_ms"]
         - stages["optimizer_ms"])
-    print(json.dumps({"phase": "stages", **stages}), flush=True)
+    print(json.dumps({"phase": "stages", "flash": flash, **stages}),
+          flush=True)
 
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
@@ -113,16 +117,15 @@ def main() -> None:
     kernels.sort(key=_device_time_us, reverse=True)
     device_ms = sum(_device_time_us(e) for e in kernels) / 1e3
 
-    def named(part):
-        return sum(_device_time_us(e) for e in kernels if part in e.key) / 1e3
-
     print(json.dumps({
         "phase": "profile", "wall_ms": wall_ms,
         "device_kernel_ms": device_ms if kernels else "not measured",
         "device_busy_share": (device_ms / wall_ms if kernels
                               else "not measured"),
-        "k1_ms": named("composite_fwd_kernel"),
-        "k2_ms": named("composite_bwd_kernel"),
+        "k1_ms": kernel_ms(kernels, "composite_fwd_kernel"),
+        "k2_ms": kernel_ms(kernels, "composite_bwd_kernel"),
+        "k3_fwd_ms": kernel_ms(kernels, "attention_fwd_kernel"),
+        "k3_bwd_ms": kernel_ms(kernels, "attention_bwd_"),
         "kernel_launches": sum(e.count for e in kernels),
         "top_kernels": [{"name": e.key[:90], "ms": _device_time_us(e) / 1e3,
                          "calls": e.count} for e in kernels[:10]]}),
@@ -138,6 +141,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
+    use_flash = flash_flag("Where the time of one train step goes.")
     if not torch.cuda.is_available():
         raise SystemExit("profile_train needs an NVIDIA GPU")
-    main()
+    main(use_flash)

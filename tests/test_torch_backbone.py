@@ -126,6 +126,32 @@ def test_base_config_builds_at_full_width():
     # zero-init heads in residual mode: step 0 is the identity refinement
     for k in ATTRS:
         np.testing.assert_array_equal(n(getattr(out, k)), n(getattr(scene, k)))
-    cfg.backbone.enable_flash = True
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    cfg.backbone.turn_off_bn = True
+    with pytest.raises(NotImplementedError, match="turn_off_bn"):
         build_feature_predictor(cfg, device="cpu")
+
+
+def test_flash_base_config_builds_at_full_width():
+    """PTv3-base with ``enable_flash``: patch 1024 in every stage, every
+    block's attention through K3 (FlashAttention, the plain version on the
+    CPU), the same widths and parameters as without flash; one patch of
+    1024 points refines to the identity at zero init."""
+    from splatformer_tpu_torch.models.ptv3 import SerializedAttention
+    cfg = get_config()
+    cfg.backbone.enable_flash = True
+    model = build_feature_predictor(cfg, device="cpu")
+    attns = [m for m in model.modules() if isinstance(m, SerializedAttention)]
+    assert len(attns) == 22  # enc (2, 2, 2, 6, 2) + dec (2, 2, 2, 2)
+    assert all(a.use_flash and a.patch_size == 1024 for a in attns)
+    assert sorted({a.qkv.in_features // a.num_heads for a in attns}) == [
+        16, 24, 32]
+    cfg.backbone.enable_flash = False
+    plain = build_feature_predictor(cfg, device="cpu")
+    assert {k: v.shape for k, v in model.state_dict().items()} == {
+        k: v.shape for k, v in plain.state_dict().items()}
+    scene = random_scene(np.random.default_rng(0), 1024, sh_degree=1,
+                         n_valid=1000, device="cpu")
+    with torch.inference_mode():
+        out = model(scene)
+    for k in ATTRS:
+        np.testing.assert_array_equal(n(getattr(out, k)), n(getattr(scene, k)))

@@ -1,5 +1,6 @@
-"""The port's CUDA kernels (K1 compositing forward, K2 its backward) on the
-card against their plain PyTorch versions.
+"""The port's CUDA kernels (K1 compositing forward, K2 its backward, K3
+patch attention forward and backward) on the card against their plain
+PyTorch versions.
 
 This file imports torch and the port only (no JAX), so it also runs where
 JAX is not installed. On a machine with an NVIDIA GPU and nvcc:
@@ -162,3 +163,54 @@ def test_composite_bwd_kernel_empty_and_ragged_tiles(opaque):
     assert bool((walked < lengths[:, None]).any())  # pixels terminate
     if opaque:  # every tile stops before its range ends
         assert bool((walked.max(dim=1).values < lengths)[1:].all())
+
+
+# K3 against its plain version (chip_smoke.py K3_*_TOL): float32 sums in
+# another order (~1e-6 of the largest magnitude); bfloat16 also rounds P, dS
+# and the outputs to bfloat16 in both, where a float32 difference can flip a
+# rounding (one bf16 ulp is 3.9e-3 relative)
+K3_FWD_TOL = {"float32": 2e-5, "bfloat16": 1e-2}
+K3_BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+
+
+def _rel_err(got, want):
+    return float((got.float() - want.float()).abs().max()) / float(
+        want.float().abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [16, 24, 32])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_attention_kernels_match_plain_on_card(d, dtype):
+    """K3-fwd and K3-bwd on (3 patches, 2 heads, 1024, d) against their
+    plain versions on the same CUDA inputs, with q, k, v and the cotangent
+    given as strided views of one (B, K, 4, H, d) tensor, as the model's
+    qkv split gives them: o within K3_FWD_TOL, lse within 2e-5, each
+    gradient within K3_BWD_TOL of its largest magnitude; one counted
+    launch each."""
+    _card()
+    from splatformer_tpu_torch.kernels.attention import (attention_bwd,
+                                                         attention_bwd_plain,
+                                                         attention_fwd,
+                                                         attention_fwd_plain)
+    gen = torch.Generator(device="cuda").manual_seed(d)
+    packed = torch.randn((3, 1024, 4, 2, d), generator=gen, device="cuda")
+    packed[:, :, 0] *= 2.0
+    q, k, v, do = packed.to(getattr(torch, dtype)).permute(2, 0, 3, 1,
+                                                          4).unbind(0)
+    scale = d ** -0.5
+    before = dict(LAUNCHES)
+    o, lse = attention_fwd(q, k, v, scale)
+    torch.cuda.synchronize()
+    o_p, lse_p = attention_fwd_plain(q, k, v, scale)
+    assert o.dtype == q.dtype and o.shape == q.shape
+    assert _rel_err(o, o_p) <= K3_FWD_TOL[dtype]
+    assert float((lse - lse_p).abs().max()) <= 2e-5
+    grads = attention_bwd(q, k, v, o, lse, do, scale)
+    torch.cuda.synchronize()
+    want = attention_bwd_plain(q, k, v, o, lse, do, scale)
+    for name, g, w in zip("qkv", grads, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        assert _rel_err(g, w) <= K3_BWD_TOL[dtype], name
+    assert LAUNCHES["attention_fwd"] == before["attention_fwd"] + 1
+    assert LAUNCHES["attention_bwd"] == before["attention_bwd"] + 1
