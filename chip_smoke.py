@@ -5,7 +5,10 @@
 
 Phases, each printing one JSON line:
   build     compile every CUDA kernel from csrc/ (one nvcc per source, all
-            started together, sm_90a);
+            started together, sm_90a), then read the K3 libraries with
+            cuobjdump: each kernel's registers a thread and its count of
+            HMMA (tensor-core) instructions; fails if a bfloat16 K3 kernel
+            has none, so the tensor cores are on the path;
   k1        the compositing forward K1 against its plain PyTorch version on
             the entries that the port's own binning makes for a
             100k-Gaussian scene under 4 orbit views at 256^2 (limit 1e-5,
@@ -18,10 +21,11 @@ Phases, each printing one JSON line:
             bound;
   k3        the patch-attention forward K3-fwd against its plain version
             at each (B, H, d) class of PTv3-base's flash path (patch 1024),
-            float32 and bfloat16, seeded q, k, v: o within K3_FWD_TOL of
-            its largest magnitude, lse within K3_LSE_TOL; its time, the
-            plain version's, its bound and, as a yardstick only, the time
-            of F.scaled_dot_product_attention on the same tensors;
+            float32 (SIMT kernel) and bfloat16 (tensor-core kernel),
+            seeded q, k, v: o within K3_FWD_TOL of its largest magnitude,
+            lse within K3_LSE_TOL; its time, registers a thread, the plain
+            version's time, its bound and, as a yardstick only, the time of
+            F.scaled_dot_product_attention on the same tensors;
   k3_bwd    the same for the backward K3-bwd (dQ pass, then dK/dV pass)
             with a seeded cotangent: each gradient within K3_BWD_TOL of its
             largest magnitude; the yardstick is SDPA's forward + backward
@@ -62,6 +66,7 @@ the last line {"ok": true, "device": {...}}. Any failure raises and exits
 non-zero; without a CUDA device it exits 1 before any phase.
 """
 import json
+import re
 import subprocess
 import sys
 import time
@@ -141,15 +146,80 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(stop) / reps
 
 
+# a K3 kernel's mangled name: pass, type, head width
+K3_KERNEL = re.compile(
+    r"attention_(fwd|bwd_dq|bwd_dkv)_(f32|bf16)_kernelILi(\d+)E")
+
+
+# SASS opcodes counted per K3 kernel: tensor-core products, SFU
+# exponentials, shared-memory fragment loads (ldmatrix)
+SASS_COUNTED = {"hmma": "HMMA", "mufu_ex2": "MUFU.EX2", "ldsm": "LDSM"}
+
+
+def k3_resources(paths):
+    """{(pass, type, d): {"hmma": n, "mufu_ex2": n, "ldsm": n,
+    "instructions": n, "registers": r}} of every K3 kernel in the built
+    attention libraries, from cuobjdump: counts of SASS instructions (all,
+    and of SASS_COUNTED, static: a loop body counts once per copy the
+    compiler made) and its registers a thread."""
+    from splatformer_tpu_torch.kernels.build import nvcc_path
+    tool = str(nvcc_path().resolve().with_name("cuobjdump"))
+    found = {}
+    for name in ("attention_fwd", "attention_bwd"):
+        path = str(paths[name])
+        sass, usage = (subprocess.run(
+            [tool, flag, path], check=True, capture_output=True, text=True,
+            timeout=300).stdout for flag in ("-sass", "-res-usage"))
+        key = None
+        for line in sass.splitlines():
+            if "Function" in line:
+                m = K3_KERNEL.search(line)
+                key = (m.group(1), m.group(2), int(m.group(3))) if m else None
+                if key:
+                    found[key] = dict.fromkeys(
+                        (*SASS_COUNTED, "instructions"), 0)
+            elif key and re.match(r"\s*/\*[0-9a-f]+\*/\s+\S", line):
+                found[key]["instructions"] += 1
+                for k, op in SASS_COUNTED.items():
+                    found[key][k] += op in line
+        key = None
+        for line in usage.splitlines():
+            m = K3_KERNEL.search(line) if "Function" in line else None
+            if m:
+                key = (m.group(1), m.group(2), int(m.group(3)))
+                continue
+            regs = re.search(r"REG:(\d+)", line)
+            if key and regs:
+                found.setdefault(key, {})["registers"] = int(regs.group(1))
+                key = None
+    return found
+
+
 def phase_build():
+    from splatformer_tpu_torch.kernels.attention import HEAD_DIMS
     from splatformer_tpu_torch.kernels.build import (SOURCES, build_all,
                                                      library_path)
     compiled = sorted(n for n in SOURCES if not library_path(n).exists())
     t0 = time.perf_counter()
-    build_all()
-    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+    paths = build_all()
+    seconds = time.perf_counter() - t0
+    res = k3_resources(paths)
+    emit({"phase": "build", "seconds": seconds,
           "libraries": sorted(SOURCES), "compiled": compiled,
-          "torch": torch.__version__, "cuda": torch.version.cuda})
+          "torch": torch.__version__, "cuda": torch.version.cuda,
+          "k3_kernels": {f"{p} {t} d{d}": r
+                         for (p, t, d), r in sorted(res.items())}})
+    for p in ("fwd", "bwd_dq", "bwd_dkv"):
+        for t in ("f32", "bf16"):
+            for d in HEAD_DIMS:
+                r = res.get((p, t, d), {})
+                if "registers" not in r or "hmma" not in r:
+                    raise AssertionError(f"cuobjdump shows no K3 {p} {t} "
+                                         f"d{d} kernel: {sorted(res)}")
+                if t == "bf16" and r["hmma"] == 0:
+                    raise AssertionError(f"bf16 K3 {p} d{d} has no HMMA "
+                                         "instruction: no tensor cores")
+    return res
 
 
 def phase_k1():
@@ -324,10 +394,11 @@ def k3_bound(b, h, d, dtype, backward):
     return ops_ms, nbytes / PEAK_BYTES * 1e3, flops, pairs, nbytes
 
 
-def phase_k3(backward=False):
+def phase_k3(resources, backward=False):
     """K3-fwd (or K3-bwd) against its plain version at every shape class,
-    float32 and bfloat16. Returns, per dtype, the sums over one forward's
-    K3_BLOCKS launches (each class times its blocks)."""
+    float32 and bfloat16; ``resources`` is phase_build's cuobjdump table.
+    Returns, per dtype, the sums over one forward's K3_BLOCKS launches (each
+    class times its blocks)."""
     import torch.nn.functional as F
     from splatformer_tpu_torch.kernels.attention import (attention_bwd,
                                                          attention_bwd_plain,
@@ -380,10 +451,15 @@ def phase_k3(backward=False):
                           for g, w in zip(got, want))
             ops_ms, bytes_ms, flops, exps, nbytes = k3_bound(b, h, d, dtype,
                                                              backward)
+            t = "bf16" if dtype == torch.bfloat16 else "f32"
+            regs = ({"dq": resources[("bwd_dq", t, d)]["registers"],
+                     "dkv": resources[("bwd_dkv", t, d)]["registers"]}
+                    if backward else resources[("fwd", t, d)]["registers"])
             row = {"phase": name, "class": cls, "dtype": str(dtype)[6:],
                    "B": b, "H": h, "K": K3_PATCH, "d": d,
                    "blocks_per_forward": blocks, "max_abs_err": abs_err,
                    "max_rel_err": rel_err, **extra, "ms": ms,
+                   "registers_per_thread": regs,
                    "plain_ms": plain_ms, "library_ms": library_ms,
                    "bound_ms": max(ops_ms, bytes_ms),
                    "bound_by": "operations" if ops_ms >= bytes_ms
@@ -870,11 +946,11 @@ def main():
         return 1
     import splatformer_tpu_torch  # noqa: F401  (the port, from this checkout)
 
-    phase_build()
+    resources = phase_build()
     k1 = phase_k1()
     k2 = phase_k2()
-    k3 = phase_k3()
-    k3_bwd = phase_k3(backward=True)
+    k3 = phase_k3(resources)
+    k3_bwd = phase_k3(resources, backward=True)
     phase_reference()
     phase_reference(flash=True)
     phase_serving()

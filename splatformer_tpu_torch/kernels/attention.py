@@ -7,7 +7,8 @@ flash_attention``): ``_flash_attention_kernel_single_batch`` forward, and
 ``_flash_attention_dkv_kernel`` / ``_flash_attention_dq_kernel`` backward.
 The kernel sources are csrc/attention_fwd.cu and csrc/attention_bwd.cu,
 whose headers state what bounds each kernel on Hopper and what its design
-does about it.
+does about it: float32 runs SIMT kernels, bfloat16 tensor-core kernels
+(mma.sync, cp.async-staged tiles).
 
 Layout (B, H, K, d) as the JAX kernel's: B patches, H heads, K tokens a
 patch, head width d. Semantics kept from the JAX kernel: logits s = (q k^T)
@@ -57,6 +58,13 @@ def _stream(x: torch.Tensor) -> int:
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
+def _aligned(x: torch.Tensor) -> torch.Tensor:
+    """``x`` contiguous at a 16-byte aligned address: the bfloat16 kernels
+    copy rows with 16-byte ``cp.async``."""
+    x = x.contiguous()
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
 def _library_fwd() -> ctypes.CDLL:
     lib = load("attention_fwd")
     fn = lib.attention_fwd
@@ -77,7 +85,7 @@ def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type != "cuda":
         raise ValueError(f"no attention_fwd for device {q.device}")
     b, h, seq, d = q.shape
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    q, k, v = _aligned(q), _aligned(k), _aligned(v)
     o = torch.empty_like(q)
     lse = torch.empty((b, h, seq), dtype=torch.float32, device=q.device)
     err = _library_fwd().attention_fwd(
@@ -137,7 +145,7 @@ def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type != "cuda":
         raise ValueError(f"no attention_bwd for device {q.device}")
     b, h, seq, d = q.shape
-    q, k, v, o, lse, do = (x.contiguous() for x in (q, k, v, o, lse, do))
+    q, k, v, o, lse, do = (_aligned(x) for x in (q, k, v, o, lse, do))
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     di = torch.empty((b, h, seq), dtype=torch.float32, device=q.device)
     err = _library_bwd().attention_bwd(

@@ -41,13 +41,14 @@ NVCC_FLAGS = {"composite_fwd": _ARCH + ("-fmad=false",) + _SHARED,
 _loaded: Dict[str, ctypes.CDLL] = {}
 
 
-def _nvcc() -> str:
+def nvcc_path() -> Path:
+    """The CUDA toolkit's nvcc (its directory also holds cuobjdump)."""
     found = shutil.which("nvcc")
     if found:
-        return found
+        return Path(found)
     default = Path("/usr/local/cuda/bin/nvcc")
     if default.exists():
-        return str(default)
+        return default
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
@@ -65,7 +66,7 @@ def build_all(names: Iterable[str] = tuple(SOURCES)) -> Dict[str, Path]:
     todo = {name: p for name, p in paths.items() if not p.exists()}
     if todo:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        nvcc = _nvcc()
+        nvcc = str(nvcc_path())
         procs = {}
         for name, path in todo.items():
             tmp = path.with_suffix(f".{os.getpid()}.tmp")

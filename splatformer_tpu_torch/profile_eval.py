@@ -124,7 +124,7 @@ def main(flash: bool = False) -> None:
         "device_kernel_ms": device_ms if kernels else "not measured",
         "device_busy_share": device_ms / wall_ms if kernels else "not measured",
         "k1_ms": kernel_ms(kernels, "composite_fwd_kernel"),
-        "k3_fwd_ms": kernel_ms(kernels, "attention_fwd_kernel"),
+        "k3_fwd_ms": kernel_ms(kernels, "attention_fwd_"),
         "top_kernels": [{"name": e.key[:90], "ms": _device_time_us(e) / 1e3,
                          "calls": e.count} for e in kernels[:10]]}),
         flush=True)

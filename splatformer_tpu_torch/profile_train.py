@@ -124,7 +124,7 @@ def main(flash: bool = False) -> None:
                               else "not measured"),
         "k1_ms": kernel_ms(kernels, "composite_fwd_kernel"),
         "k2_ms": kernel_ms(kernels, "composite_bwd_kernel"),
-        "k3_fwd_ms": kernel_ms(kernels, "attention_fwd_kernel"),
+        "k3_fwd_ms": kernel_ms(kernels, "attention_fwd_"),
         "k3_bwd_ms": kernel_ms(kernels, "attention_bwd_"),
         "kernel_launches": sum(e.count for e in kernels),
         "top_kernels": [{"name": e.key[:90], "ms": _device_time_us(e) / 1e3,

@@ -178,27 +178,16 @@ def _rel_err(got, want):
         want.float().abs().max())
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("d", [16, 24, 32])
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_attention_kernels_match_plain_on_card(d, dtype):
-    """K3-fwd and K3-bwd on (3 patches, 2 heads, 1024, d) against their
-    plain versions on the same CUDA inputs, with q, k, v and the cotangent
-    given as strided views of one (B, K, 4, H, d) tensor, as the model's
-    qkv split gives them: o within K3_FWD_TOL, lse within 2e-5, each
-    gradient within K3_BWD_TOL of its largest magnitude; one counted
-    launch each."""
-    _card()
+def _check_k3(q, k, v, do, dtype):
+    """K3-fwd and K3-bwd against their plain versions on the same CUDA
+    inputs: o within K3_FWD_TOL, lse within 2e-5, each gradient within
+    K3_BWD_TOL of its largest magnitude; one counted launch each. Returns
+    (o, lse) and the gradients."""
     from splatformer_tpu_torch.kernels.attention import (attention_bwd,
                                                          attention_bwd_plain,
                                                          attention_fwd,
                                                          attention_fwd_plain)
-    gen = torch.Generator(device="cuda").manual_seed(d)
-    packed = torch.randn((3, 1024, 4, 2, d), generator=gen, device="cuda")
-    packed[:, :, 0] *= 2.0
-    q, k, v, do = packed.to(getattr(torch, dtype)).permute(2, 0, 3, 1,
-                                                          4).unbind(0)
-    scale = d ** -0.5
+    scale = q.shape[-1] ** -0.5
     before = dict(LAUNCHES)
     o, lse = attention_fwd(q, k, v, scale)
     torch.cuda.synchronize()
@@ -214,3 +203,54 @@ def test_attention_kernels_match_plain_on_card(d, dtype):
         assert _rel_err(g, w) <= K3_BWD_TOL[dtype], name
     assert LAUNCHES["attention_fwd"] == before["attention_fwd"] + 1
     assert LAUNCHES["attention_bwd"] == before["attention_bwd"] + 1
+    return (o, lse), grads
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seq", [64, 192, 1024])
+@pytest.mark.parametrize("d", [16, 24, 32])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_attention_kernels_match_plain_on_card(seq, d, dtype):
+    """K3-fwd and K3-bwd on (3 patches, 2 heads, seq, d) against their
+    plain versions (_check_k3), with q, k, v and the cotangent given as
+    strided views of one (B, K, 4, H, d) tensor, as the model's qkv split
+    gives them. seq 64 is one tile; 192 ends on a tile edge that is not a
+    multiple of 128."""
+    _card()
+    gen = torch.Generator(device="cuda").manual_seed(d)
+    packed = torch.randn((3, seq, 4, 2, d), generator=gen, device="cuda")
+    packed[:, :, 0] *= 2.0
+    q, k, v, do = packed.to(getattr(torch, dtype)).permute(2, 0, 3, 1,
+                                                          4).unbind(0)
+    _check_k3(q, k, v, do, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [16, 24, 32])
+def test_attention_bf16_rescale_and_determinism_on_card(d):
+    """bfloat16 K3 where one row's logits lie 30 apart, the largest in the
+    patch's last 64-key tile, so the online softmax rescales that row's
+    accumulator by ~exp(-30) late: within the tolerances of _check_k3, the
+    row's output close to the dominant key's value. Then the backward again
+    on the same inputs: bit-identical, as no pass uses atomics."""
+    _card()
+    from splatformer_tpu_torch.kernels.attention import attention_bwd
+    gen = torch.Generator(device="cuda").manual_seed(100 + d)
+    q, k, v, do = (torch.randn((2, 2, 256, d), generator=gen, device="cuda")
+                   for _ in range(4))
+    scale = d ** -0.5
+    row, key = 5, 230
+    # k[key] along q[row], at a logit of 30 (the others are ~N(0, 1))
+    k[0, 1, key] = q[0, 1, row] * (30.0 / (scale * float(
+        q[0, 1, row].square().sum())))
+    q, k, v, do = (x.to(torch.bfloat16) for x in (q, k, v, do))
+    logits = (q[0, 1, row].float() @ k[0, 1].float().T) * scale
+    assert float(logits.max() - logits.min()) >= 30.0
+    assert int(logits.argmax()) == key
+    (o, lse), grads = _check_k3(q, k, v, do, "bfloat16")
+    assert float((o[0, 1, row].float() - v[0, 1, key].float()).abs().max()) \
+        <= 0.05 * float(v[0, 1, key].float().abs().max())
+    again = attention_bwd(q, k, v, o, lse, do, scale)
+    torch.cuda.synchronize()
+    for name, g, h in zip("qkv", grads, again):
+        assert torch.equal(g, h), name
