@@ -6,9 +6,11 @@
 Phases, each printing one JSON line:
   build     compile every CUDA kernel from csrc/ (one nvcc per source, all
             started together, sm_90a), then read the K3 libraries with
-            cuobjdump: each kernel's registers a thread and its count of
-            HMMA (tensor-core) instructions; fails if a bfloat16 K3 kernel
-            has none, so the tensor cores are on the path;
+            cuobjdump: each kernel's registers a thread and its counts of
+            HMMA (tensor-core), MUFU.EX2, LDSM and LDS.128 instructions;
+            fails if a bfloat16 K3 kernel has no HMMA or the float32
+            forward no HMMA.1688.F32.TF32, so the tensor cores are on the
+            path;
   k1        the compositing forward K1 against its plain PyTorch version on
             the entries that the port's own binning makes for a
             100k-Gaussian scene under 4 orbit views at 256^2 (limit 1e-5,
@@ -21,11 +23,13 @@ Phases, each printing one JSON line:
             bound;
   k3        the patch-attention forward K3-fwd against its plain version
             at each (B, H, d) class of PTv3-base's flash path (patch 1024),
-            float32 (SIMT kernel) and bfloat16 (tensor-core kernel),
-            seeded q, k, v: o within K3_FWD_TOL of its largest magnitude,
-            lse within K3_LSE_TOL; its time, registers a thread, the plain
-            version's time, its bound and, as a yardstick only, the time of
-            F.scaled_dot_product_attention on the same tensors;
+            float32 (split-TF32 tensor-core kernel) and bfloat16
+            (tensor-core kernel), seeded q, k, v: o within K3_FWD_TOL of its
+            largest magnitude, lse within K3_LSE_TOL; its time, registers a
+            thread, the plain version's time, its bound
+            (float32 beside the FP32 pipes' time, fp32_pipe_ms) and, as a
+            yardstick only, the time of F.scaled_dot_product_attention on
+            the same tensors;
   k3_bwd    the same for the backward K3-bwd (dQ pass, then dK/dV pass)
             with a seeded cotangent: each gradient within K3_BWD_TOL of its
             largest magnitude; the yardstick is SDPA's forward + backward
@@ -41,7 +45,8 @@ Phases, each printing one JSON line:
             num_dropped, peak memory; K1 launched once per request, K2
             never;
   serving_flash  the same with enable_flash (patch 1024): K1 once and
-            K3-fwd 22 times (once a block) per request, no K2, no K3-bwd;
+            K3-fwd 22 times (once a block, float32) per request, no K2, no
+            K3-bwd;
   train_reference  a tiny model (drop_path 0, a fixed order shuffle,
             LPIPS from seeded random weights) on the card against the CPU:
             2 f32 SGD steps, each from the same state (losses, every
@@ -120,11 +125,16 @@ K3_BLOCKS = sum(c[3] for c in K3_CLASSES.values())   # 22 attention calls
 K3_FWD_TOL = {torch.float32: 2e-5, torch.bfloat16: 1e-2}
 K3_LSE_TOL = 2e-5    # absolute: lse is float32 from float32 logits
 K3_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
-# bf16 dense tensor-core peak (NVIDIA H100 SXM data sheet); exponentials on
-# the SFU: 16 a clock per SM (CUDA C++ Programming Guide, arithmetic
-# instruction throughput, compute capability 9.0) x 132 SMs x 1.98 GHz, the
-# clock of the 67 TFLOP/s FP32 peak
+# bf16 and TF32 dense tensor-core peaks (NVIDIA H100 SXM data sheet);
+# exponentials on the SFU: 16 a clock per SM (CUDA C++ Programming Guide,
+# arithmetic instruction throughput, compute capability 9.0) x 132 SMs x
+# 1.98 GHz, the clock of the 67 TFLOP/s FP32 peak
 PEAK_BF16 = 989e12
+PEAK_TF32 = 495e12
+# TF32 products a float32-accurate product on the tensor cores (split TF32:
+# a_lo b_hi + a_hi b_lo + a_hi b_hi; one TF32 product misses the float32
+# limits, tests/test_torch_attention_tf32.py)
+TF32_SPLIT = 3
 PEAK_EXP = 16 * 132 * 1.98e9
 
 
@@ -146,14 +156,23 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(stop) / reps
 
 
-# a K3 kernel's mangled name: pass, type, head width
+# a K3 kernel's mangled name: pass, type (float32's forward is the
+# split-TF32 kernel), head width
 K3_KERNEL = re.compile(
-    r"attention_(fwd|bwd_dq|bwd_dkv)_(f32|bf16)_kernelILi(\d+)E")
+    r"attention_(fwd|bwd_dq|bwd_dkv)_(f32|tf32x3|bf16)_kernelILi(\d+)E")
 
 
-# SASS opcodes counted per K3 kernel: tensor-core products, SFU
-# exponentials, shared-memory fragment loads (ldmatrix)
-SASS_COUNTED = {"hmma": "HMMA", "mufu_ex2": "MUFU.EX2", "ldsm": "LDSM"}
+def k3_key(m):
+    """(pass, "f32" or "bf16", d) of a K3_KERNEL match."""
+    t = "f32" if m.group(2) == "tf32x3" else m.group(2)
+    return m.group(1), t, int(m.group(3))
+
+
+# SASS opcodes counted per K3 kernel: tensor-core products (and those of
+# them on TF32 operands), SFU exponentials, shared-memory fragment loads
+# (ldmatrix, and 16-byte loads)
+SASS_COUNTED = {"hmma": "HMMA", "hmma_tf32": "HMMA.1688.F32.TF32",
+                "mufu_ex2": "MUFU.EX2", "ldsm": "LDSM", "lds128": "LDS.128"}
 
 
 def k3_resources(paths):
@@ -174,10 +193,11 @@ def k3_resources(paths):
         for line in sass.splitlines():
             if "Function" in line:
                 m = K3_KERNEL.search(line)
-                key = (m.group(1), m.group(2), int(m.group(3))) if m else None
+                key = k3_key(m) if m else None
                 if key:
                     found[key] = dict.fromkeys(
                         (*SASS_COUNTED, "instructions"), 0)
+                    found[key]["kernel"] = m.group(0)
             elif key and re.match(r"\s*/\*[0-9a-f]+\*/\s+\S", line):
                 found[key]["instructions"] += 1
                 for k, op in SASS_COUNTED.items():
@@ -186,7 +206,7 @@ def k3_resources(paths):
         for line in usage.splitlines():
             m = K3_KERNEL.search(line) if "Function" in line else None
             if m:
-                key = (m.group(1), m.group(2), int(m.group(3)))
+                key = k3_key(m)
                 continue
             regs = re.search(r"REG:(\d+)", line)
             if key and regs:
@@ -219,6 +239,10 @@ def phase_build():
                 if t == "bf16" and r["hmma"] == 0:
                     raise AssertionError(f"bf16 K3 {p} d{d} has no HMMA "
                                          "instruction: no tensor cores")
+                if (p, t) == ("fwd", "f32") and r["hmma_tf32"] == 0:
+                    raise AssertionError(f"f32 K3 fwd d{d} has no "
+                                         "HMMA.1688.F32.TF32 instruction: "
+                                         "no tensor cores")
     return res
 
 
@@ -377,21 +401,27 @@ def k3_inputs(b, h, d, dtype, seed):
 
 
 def k3_bound(b, h, d, dtype, backward):
-    """(ops ms, bytes ms, FLOPs, exponentials, bytes) of the least work:
-    forward 4 K^2 d FLOP per head (q k^T, P V), backward 2.5 times that (s,
-    dP, dV, dK, dQ), one exponential per (query, key) pair either way; each
-    input read once and each output written once (forward q, k, v -> o,
-    lse; backward q, k, v, o, do, lse -> dq, dk, dv). FLOPs at the FP32
-    peak in float32 and the tensor-core peak in bfloat16, exponentials at
-    the SFU rate: the larger of the two is the operations' time."""
+    """(ops ms, bytes ms, FLOPs, exponentials, bytes, FP32-pipe ms) of the
+    least work: forward 4 K^2 d FLOP per head (q k^T, P V), backward 2.5
+    times that (s, dP, dV, dK, dQ), one exponential per (query, key) pair
+    either way; each input read once and each output written once (forward
+    q, k, v -> o, lse; backward q, k, v, o, do, lse -> dq, dk, dv). FLOPs on
+    the tensor cores: bfloat16 at its peak; float32 as the least
+    float32-accurate work there, TF32_SPLIT TF32 products a product at the
+    TF32 peak. Exponentials at the SFU rate; the larger of the two is the
+    operations' time. The FP32-pipe ms (the FLOPs at the 67 TFLOP/s FP32
+    peak) is what a float32 kernel outside the tensor cores could reach,
+    kept for comparison with such kernels."""
     pairs = b * h * K3_PATCH ** 2
     flops = (10 if backward else 4) * pairs * d
     tokens = b * h * K3_PATCH
     esize = torch.tensor([], dtype=dtype).element_size()
     nbytes = (8 if backward else 4) * tokens * d * esize + 4 * tokens
-    peak = PEAK_BF16 if dtype == torch.bfloat16 else PEAK_F32
-    ops_ms = max(flops / peak, pairs / PEAK_EXP) * 1e3
-    return ops_ms, nbytes / PEAK_BYTES * 1e3, flops, pairs, nbytes
+    tensor_s = (flops / PEAK_BF16 if dtype == torch.bfloat16
+                else TF32_SPLIT * flops / PEAK_TF32)
+    ops_ms = max(tensor_s, pairs / PEAK_EXP) * 1e3
+    return (ops_ms, nbytes / PEAK_BYTES * 1e3, flops, pairs, nbytes,
+            flops / PEAK_F32 * 1e3)
 
 
 def phase_k3(resources, backward=False):
@@ -408,7 +438,8 @@ def phase_k3(resources, backward=False):
     totals = {}
     for dtype in (torch.float32, torch.bfloat16):
         tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "ops_ms": 0.0,
-               "bytes_ms": 0.0, "max_abs_err": 0.0, "max_rel_err": 0.0}
+               "bytes_ms": 0.0, "fp32_pipe_ms": 0.0, "max_abs_err": 0.0,
+               "max_rel_err": 0.0}
         for i, (cls, (b, h, d, blocks)) in enumerate(K3_CLASSES.items()):
             q, k, v, do = k3_inputs(b, h, d, dtype, seed=30 + i)
             scale = d ** -0.5
@@ -449,12 +480,14 @@ def phase_k3(resources, backward=False):
             rel_err = max(float((g.float() - w.float()).abs().max())
                           / max(float(w.float().abs().max()), 1e-30)
                           for g, w in zip(got, want))
-            ops_ms, bytes_ms, flops, exps, nbytes = k3_bound(b, h, d, dtype,
-                                                             backward)
+            ops_ms, bytes_ms, flops, exps, nbytes, fp32_pipe_ms = k3_bound(
+                b, h, d, dtype, backward)
             t = "bf16" if dtype == torch.bfloat16 else "f32"
             regs = ({"dq": resources[("bwd_dq", t, d)]["registers"],
                      "dkv": resources[("bwd_dkv", t, d)]["registers"]}
                     if backward else resources[("fwd", t, d)]["registers"])
+            if t == "f32":
+                extra["fp32_pipe_ms"] = fp32_pipe_ms
             row = {"phase": name, "class": cls, "dtype": str(dtype)[6:],
                    "B": b, "H": h, "K": K3_PATCH, "d": d,
                    "blocks_per_forward": blocks, "max_abs_err": abs_err,
@@ -471,11 +504,14 @@ def phase_k3(resources, backward=False):
                                      f"version: {row}")
             for key, val in (("ms", ms), ("plain_ms", plain_ms),
                              ("library_ms", library_ms), ("ops_ms", ops_ms),
-                             ("bytes_ms", bytes_ms)):
+                             ("bytes_ms", bytes_ms),
+                             ("fp32_pipe_ms", fp32_pipe_ms)):
                 tot[key] += blocks * val
             tot["max_abs_err"] = max(tot["max_abs_err"], abs_err)
             tot["max_rel_err"] = max(tot["max_rel_err"], rel_err)
             del q, k, v, do, got, want
+        if dtype == torch.bfloat16:
+            del tot["fp32_pipe_ms"]
         tot["bound_ms"] = max(tot["ops_ms"], tot["bytes_ms"])
         tot["bound_by"] = ("operations" if tot["ops_ms"] >= tot["bytes_ms"]
                            else "bytes")
@@ -857,16 +893,27 @@ def phase_train_reference_flash():
                              f"want {expected}")
 
 
-def k3_entry(name, source, replaces, launches, totals):
+def k3_entry(name, source, replaces, launches, totals,
+             serving_launches=None):
     """The kernels line's entry of a K3 kernel: its sums over one forward
-    pass's launches in bfloat16, the train step's type."""
-    t = totals["bfloat16"]
-    return {"name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[name],
-            "max_abs_err": t["max_abs_err"], "ms": t["ms"],
-            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
-            "per": f"one forward pass: {K3_BLOCKS} launches, bfloat16"}
+    pass's launches in bfloat16, the train step's type; with
+    ``serving_launches`` also, under "float32", the same for float32, the
+    serving path's type, with that path's launches."""
+    def sums(t):
+        return {"max_abs_err": t["max_abs_err"], "ms": t["ms"],
+                "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                "bound_by": t["bound_by"], "library_ms": t["library_ms"]}
+    entry = {"name": name, "route": "cuda", "source": source,
+             "replaces": replaces, "launches": launches[name],
+             **sums(totals["bfloat16"]),
+             "per": f"one forward pass: {K3_BLOCKS} launches, bfloat16"}
+    if serving_launches is not None:
+        entry["float32"] = {
+            "launches": serving_launches[name], **sums(totals["float32"]),
+            "fp32_pipe_ms": totals["float32"]["fp32_pipe_ms"],
+            "per": f"one forward pass: {K3_BLOCKS} launches, float32 "
+                   "(launches: serving_flash)"}
+    return entry
 
 
 def phase_training(flash=False):
@@ -955,7 +1002,7 @@ def main():
     phase_reference(flash=True)
     phase_serving()
     torch.cuda.empty_cache()
-    phase_serving(flash=True)
+    serving_flash = phase_serving(flash=True)  # float32 K3-fwd's path
     phase_train_reference()
     phase_train_reference_flash()
     torch.cuda.empty_cache()
@@ -983,7 +1030,8 @@ def main():
         k3_entry("attention_fwd",
                  "splatformer_tpu_torch/csrc/attention_fwd.cu",
                  f"{flash_src}:342 (called at "
-                 "splatformer_tpu/models/ptv3.py:118)", launches, k3),
+                 "splatformer_tpu/models/ptv3.py:118)", launches, k3,
+                 serving_flash),
         k3_entry("attention_bwd",
                  "splatformer_tpu_torch/csrc/attention_bwd.cu",
                  f"{flash_src}:796 and :1146 (called at "

@@ -7,8 +7,11 @@ flash_attention``): ``_flash_attention_kernel_single_batch`` forward, and
 ``_flash_attention_dkv_kernel`` / ``_flash_attention_dq_kernel`` backward.
 The kernel sources are csrc/attention_fwd.cu and csrc/attention_bwd.cu,
 whose headers state what bounds each kernel on Hopper and what its design
-does about it: float32 runs SIMT kernels, bfloat16 tensor-core kernels
-(mma.sync, cp.async-staged tiles).
+does about it. Both forwards run on the tensor cores (mma.sync,
+cp.async-staged tiles): bfloat16 directly, float32 as split-TF32 products
+(each operand split into two TF32 halves, three products a product, which
+keeps float32 accuracy). The backward runs bfloat16 on the tensor cores
+and float32 as SIMT kernels.
 
 Layout (B, H, K, d) as the JAX kernel's: B patches, H heads, K tokens a
 patch, head width d. Semantics kept from the JAX kernel: logits s = (q k^T)
@@ -59,8 +62,8 @@ def _stream(x: torch.Tensor) -> int:
 
 
 def _aligned(x: torch.Tensor) -> torch.Tensor:
-    """``x`` contiguous at a 16-byte aligned address: the bfloat16 kernels
-    copy rows with 16-byte ``cp.async``."""
+    """``x`` contiguous at a 16-byte aligned address: the tensor-core
+    kernels of both types stage tiles with 16-byte ``cp.async``."""
     x = x.contiguous()
     return x if x.data_ptr() % 16 == 0 else x.clone()
 

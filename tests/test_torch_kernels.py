@@ -254,3 +254,56 @@ def test_attention_bf16_rescale_and_determinism_on_card(d):
     torch.cuda.synchronize()
     for name, g, h in zip("qkv", grads, again):
         assert torch.equal(g, h), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["rescale", "wide"])
+@pytest.mark.parametrize("d", [16, 24, 32])
+def test_attention_f32_fwd_rescale_wide_and_determinism_on_card(d, kind):
+    """float32 K3-fwd (split-TF32 products on the tensor cores) on (2
+    patches, 4 heads, 1024, d), as tests/test_torch_attention_tf32.py
+    emulates it. ``rescale``: one row's logits lie 30 apart, the largest in
+    the patch's last 64-key tile, so the online softmax rescales that row's
+    accumulator by ~exp(-30) late; its output is the dominant key's value.
+    ``wide``: operands spread over 1e-3 to 1e3 (q's column j scaled by
+    10^e_j and k's by 10^-e_j, e_j uniform in [-3, 3], so the logits stay
+    those of unit inputs; each v element scaled by 10^f, f uniform in [-3,
+    3]), so the split's lo halves work at every exponent. o within
+    K3_FWD_TOL of its largest magnitude and lse within 2e-5 of the plain
+    version's; a second run bit-identical, as the kernel uses no atomics."""
+    _card()
+    from splatformer_tpu_torch.kernels.attention import (attention_fwd,
+                                                         attention_fwd_plain)
+    gen = torch.Generator(device="cuda").manual_seed(200 + d)
+    q, k, v = (torch.randn((2, 4, 1024, d), generator=gen, device="cuda")
+               for _ in range(3))
+    q = 2.0 * q
+    scale = d ** -0.5
+    row, key = 5, 1000
+    if kind == "rescale":
+        k[0, 1, key] = q[0, 1, row] * (30.0 / (scale * float(
+            q[0, 1, row].square().sum())))
+        logits = (q[0, 1, row] @ k[0, 1].T) * scale
+        assert float(logits.max() - logits.min()) >= 30.0
+        assert int(logits.argmax()) == key
+    else:
+        e = 6.0 * torch.rand(d, generator=gen, device="cuda") - 3.0
+        q, k = q * 10.0 ** e, k * 10.0 ** -e
+        v = v * 10.0 ** (6.0 * torch.rand(v.shape, generator=gen,
+                                          device="cuda") - 3.0)
+        for x in (q, k, v):
+            assert float(x.abs().min()) < 1e-3 and float(x.abs().max()) > 1e2
+    before = LAUNCHES["attention_fwd"]
+    o, lse = attention_fwd(q, k, v, scale)
+    torch.cuda.synchronize()
+    o_p, lse_p = attention_fwd_plain(q, k, v, scale)
+    assert o.dtype == torch.float32 and o.shape == q.shape
+    assert _rel_err(o, o_p) <= K3_FWD_TOL["float32"]
+    assert float((lse - lse_p).abs().max()) <= 2e-5
+    if kind == "rescale":
+        assert float((o[0, 1, row] - v[0, 1, key]).abs().max()) \
+            <= 1e-5 * float(v[0, 1, key].abs().max())
+    o2, lse2 = attention_fwd(q, k, v, scale)
+    torch.cuda.synchronize()
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    assert LAUNCHES["attention_fwd"] == before + 2
