@@ -14,13 +14,17 @@ Phases, each printing one JSON line:
   k1        the compositing forward K1 against its plain PyTorch version on
             the entries that the port's own binning makes for a
             100k-Gaussian scene under 4 orbit views at 256^2 (limit 1e-5,
-            walked counts exact), with its time, the plain version's and
-            its bound;
+            walked counts exact), with its time, the plain version's, its
+            bound (bytes, and the live pairs' operations) and the same
+            operations at the unfused FP32 rate
+            (unfused_fp32_ms); the warp-box cull's plain predicate
+            (warp_box_keep_plain) on the same entries: the kept share of
+            the warp-iterations and the live pairs it culls, which must be 0;
   k2        the compositing backward K2 against its plain version on the
             same entries with a seeded random cotangent (T channel
             included): each gradient row within 1e-4 of its own largest
-            magnitude, exact zeros outside the replayed ranges; times and
-            bound;
+            magnitude, exact zeros outside the replayed ranges; times,
+            bound, unfused_fp32_ms and the cull's numbers over the replay;
   k3        the patch-attention forward K3-fwd against its plain version
             at each (B, H, d) class of PTv3-base's flash path (patch 1024),
             float32 (split-TF32 tensor-core kernel) and bfloat16
@@ -57,6 +61,13 @@ Phases, each printing one JSON line:
   train_reference_flash  one f32 SGD step of the tiny enable_flash model
             from one state, card against CPU (loss, every update, the
             running statistics): K3's backward in float32;
+  train_repro  two bf16 PTv3-base steps at patch 128 (heads not
+            zero-initialised, so the backbone gets gradients) from one
+            seeded state, one generator seed and one batch, with the
+            recipe's Adam: the largest loss, gradient and parameter
+            differences between the two; fails beyond the bf16 perturbation
+            train_reference bounds (loss within 1e-3 relative, gradients at
+            cosine >= 0.998);
   training  PTv3-base at full width in train mode (bf16 blocks, drop_path
             0.3, zero-init heads), the recipe's Adam (lr 3e-5, eps 1e-15,
             clip 2.0), L1 loss: one warm-up step, then 3 timed steps of
@@ -92,23 +103,29 @@ K2_TOL = 1e-4
 # published H100 SXM peaks (dense): FP32 outside the tensor cores, HBM3
 PEAK_F32 = 67e12
 PEAK_BYTES = 3.35e12
-# FP32 operations every evaluated (pixel, entry) pair needs in K1, expf
-# counted as one: dx, dy, 3 products and a sum per quadratic term group
-# (9), the 0.5 scale, the clamp, the negation, expf, the opacity product,
-# the alpha clamp, the threshold compare
+# The K1 and K2 bounds count only the work any correct kernel must do on
+# this run's data: their bytes, and the operations of the live (pixel,
+# entry) pairs (alpha >= threshold, live_pairs); a dead pair needs no
+# arithmetic once it is known to be dead, as the warp-box cull shows.
+# FP32 operations of a live pair in K1, expf counted as one: dx, dy, 3
+# products and a sum per quadratic term group (9), the 0.5 scale, the clamp,
+# the negation, expf, the opacity product, the alpha clamp, the threshold
+# compare
 K1_OPS_PER_PAIR = 18
-# FP32 operations K2 needs, counted from this run's data (live_pairs):
-# every replayed (pixel, entry) pair recomputes sigma and alpha and compares
-# (K1's 18); a live pair (alpha >= threshold) adds g_rgb . c (5), vis (1),
-# the S update (2), d-alpha (5: product, sum, 1 - a, quotient, difference),
-# the T update (1), the max-alpha compare (1), d-rgb (3) and its 3 adds
-# into the entry's sums over pixels (21); a live pair below the max-alpha
-# clamp adds d-sigma (2), dx 4, dy 4, dconic 3 + 2 + 3, dopacity 1 and
-# their 6 adds into the sums (25)
-K2_OPS_PER_PAIR = 18
-K2_OPS_PER_LIVE = 21
+# FP32 operations of a live pair in K2: K1's 18 to recompute sigma and
+# alpha, g_rgb . c (5), vis (1), the S update (2), d-alpha (5: product, sum,
+# 1 - a, quotient, difference), the T update (1), the max-alpha compare (1),
+# d-rgb (3) and its 3 adds into the entry's sums over pixels (39 in all); a
+# live pair below the max-alpha clamp adds d-sigma (2), dx 4, dy 4, dconic
+# 3 + 2 + 3, dopacity 1 and their 6 adds into the sums (25)
+K2_OPS_PER_LIVE = 39
 K2_OPS_PER_UNCLAMPED = 25
 PEAK_MEM_GB = 60.0   # PERF.md section 2: a train step fits without remat
+# FP32 operations a clock per SM when no product fuses (K1 and K2 build with
+# -fmad=false: 128 lanes issue one operation each, half the 67 TFLOP/s
+# peak's two per FMA), x 132 SMs x 1.98 GHz: the unfused_fp32_ms yardstick
+# (the bound's operations at that rate)
+PEAK_F32_UNFUSED = 128 * 132 * 1.98e9
 
 # K3 on PTv3-base's flash path (patch 1024): shape class -> (B patches, H
 # heads, d, blocks a forward), from the padded 100352 points and the pooled
@@ -249,7 +266,8 @@ def phase_build():
 def phase_k1():
     from splatformer_tpu_torch.data.synthetic import orbit_cameras, random_scene
     from splatformer_tpu_torch.kernels.composite import (composite_fwd,
-                                                         composite_fwd_plain)
+                                                         composite_fwd_plain,
+                                                         warp_box_max)
     from splatformer_tpu_torch.ops.render import prepare_entries
     from splatformer_tpu_torch.ops.types import RasterizeConfig
 
@@ -272,25 +290,82 @@ def phase_k1():
     length = (e.tile_start[1:] - e.tile_start[:-1]).to(torch.int64)[:, None]
     terminated = walked_k.to(torch.int64) < length
     pairs = int(walked_k.to(torch.int64).sum() + terminated.sum())
-    ops = K1_OPS_PER_PAIR * pairs
+    # the live pairs below each pixel's walk, and its terminating entry
+    live = live_pairs(*args, walked_k)[0] + int(terminated.sum())
+    ops = K1_OPS_PER_PAIR * live
     num_tiles = e.tile_start.shape[0] - 1
     nbytes = (9 * 4 * num_entries + 4 * (num_tiles + 1)
               + num_tiles * 256 * (4 * 4 + 4))
     ops_ms, bytes_ms = ops / PEAK_F32 * 1e3, nbytes / PEAK_BYTES * 1e3
+    # each warp walks its box's entries until its last pixel terminates
+    reach = warp_box_max(walked_k.to(torch.int64)
+                         + terminated.to(torch.int64))
+    cull = cull_stats(*args, reach)
     result = {
         "phase": "k1", "num_entries": num_entries,
         "num_dropped": int(e.bins.num_dropped), "num_tiles": num_tiles,
         "max_abs_err_rgb": err_rgb, "max_abs_err_T": err_t,
         "walked_mismatches": walked_diff, "pairs_evaluated": pairs,
+        "pairs_live": live,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": max(ops_ms, bytes_ms),
         "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-        "ops": ops, "bytes": nbytes}
+        "unfused_fp32_ms": ops / PEAK_F32_UNFUSED * 1e3,
+        "ops": ops, "bytes": nbytes, **cull}
     emit(result)
     if not (err_rgb <= K1_TOL and err_t <= K1_TOL and walked_diff == 0):
         raise AssertionError(f"K1 disagrees with its plain version: {result}")
+    if cull["live_pairs_culled"] != 0:
+        raise AssertionError(f"the cull drops live pairs: {result}")
     if not (num_entries > 0 and float(out_k[..., 3].min()) < 0.5):
         raise AssertionError("K1 composited nothing")
     return result
+
+
+def cull_stats(packed_t, tile_start, tiles_x, tiles_img, reach,
+               alpha_threshold=1.0 / 255.0, chunk=64):
+    """The warp-box cull of K1 and K2 by its plain predicate
+    (warp_box_keep_plain) on these entries: the warp-iterations (each warp
+    box's entries below ``reach`` (T, 8)), the share of them kept, the share
+    of all (box, entry) pairs kept, and the live pairs (alpha >= threshold
+    anywhere in a tile's range, by composite_fwd_plain's operations) that
+    the predicate culls."""
+    from splatformer_tpu_torch.kernels.composite import (pixel_box,
+                                                         warp_box_keep_plain)
+    dev = packed_t.device
+    keep = warp_box_keep_plain(packed_t, tile_start, tiles_x, tiles_img,
+                               alpha_threshold)
+    num_tiles, _, max_len = keep.shape
+    j = torch.arange(max_len, device=dev)
+    kept_iters = int((keep & (j < reach[..., None])).sum())
+    iters = int(reach.sum())
+    start = tile_start[:-1].long()
+    length = (tile_start[1:] - tile_start[:-1]).long()
+    local = torch.arange(num_tiles, device=dev) % tiles_img
+    p = torch.arange(256, device=dev)
+    px = ((local % tiles_x) * 16)[:, None] + (p % 16)[None, :]
+    py = (local // tiles_x * 16)[:, None] + (p // 16)[None, :]
+    px, py = px.float()[..., None], py.float()[..., None]
+    box = pixel_box().to(dev)
+    culled_live = 0
+    for base in range(0, max_len, chunk):
+        jc = base + torch.arange(min(chunk, max_len - base), device=dev)
+        in_range = jc[None, :] < length[:, None]
+        idx = torch.where(in_range, start[:, None] + jc[None, :], 0)
+        e = packed_t[:6, idx]                                   # (6, T, C)
+        dx = e[0][:, None, :] - px                              # (T, P, C)
+        dy = e[1][:, None, :] - py
+        c0, c1, c2 = (e[k][:, None, :] for k in (2, 3, 4))
+        sigma = 0.5 * (c0 * dx * dx + c2 * dy * dy) + c1 * dx * dy
+        alpha = torch.clamp(e[5][:, None, :]
+                            * torch.exp(-torch.clamp(sigma, min=0.0)),
+                            max=0.999)
+        on = (alpha >= alpha_threshold) & in_range[:, None, :]
+        culled_live += int((on & ~keep[:, :, jc][:, box, :]).sum())
+    return {"warp_iterations": iters, "warp_iterations_kept": kept_iters,
+            "kept_share": kept_iters / max(iters, 1),
+            "box_entries_kept_share": float(keep.sum())
+            / max(8 * int(length.sum()), 1),
+            "live_pairs_culled": culled_live}
 
 
 def replayed_columns(tile_start, walked, budget):
@@ -339,7 +414,8 @@ def phase_k2():
     from splatformer_tpu_torch.data.synthetic import orbit_cameras, random_scene
     from splatformer_tpu_torch.kernels.composite import (composite_bwd,
                                                          composite_bwd_plain,
-                                                         composite_fwd)
+                                                         composite_fwd,
+                                                         warp_box_max)
     from splatformer_tpu_torch.ops.render import prepare_entries
     from splatformer_tpu_torch.ops.types import RasterizeConfig
 
@@ -368,12 +444,14 @@ def phase_k2():
     pairs = int(walked.to(torch.int64).sum())   # K2 replays exactly these
     live, unclamped = live_pairs(e.packed_t, e.tile_start, tiles_x,
                                  tiles_img, walked)
-    ops = (K2_OPS_PER_PAIR * pairs + K2_OPS_PER_LIVE * live
-           + K2_OPS_PER_UNCLAMPED * unclamped)
+    ops = K2_OPS_PER_LIVE * live + K2_OPS_PER_UNCLAMPED * unclamped
     nbytes = (9 * 4 * num_entries + 4 * (num_tiles + 1)
               + num_tiles * 256 * (4 * 4 + 4 + 4 * 4)
               + 16 * 4 * e.packed_t.shape[1])
     ops_ms, bytes_ms = ops / PEAK_F32 * 1e3, nbytes / PEAK_BYTES * 1e3
+    # each warp replays its box's entries below its longest walk
+    cull = cull_stats(e.packed_t, e.tile_start, tiles_x, tiles_img,
+                      warp_box_max(walked.to(torch.int64)))
     result = {
         "phase": "k2", "num_entries": num_entries, "num_tiles": num_tiles,
         "max_abs_err": max_abs_err, "row_rel_err": row_err,
@@ -382,10 +460,13 @@ def phase_k2():
         "pairs_unclamped": unclamped, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": max(ops_ms, bytes_ms),
         "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-        "ops": ops, "bytes": nbytes}
+        "unfused_fp32_ms": ops / PEAK_F32_UNFUSED * 1e3,
+        "ops": ops, "bytes": nbytes, **cull}
     emit(result)
     if not (max(row_err) <= K2_TOL and stray == 0):
         raise AssertionError(f"K2 disagrees with its plain version: {result}")
+    if cull["live_pairs_culled"] != 0:
+        raise AssertionError(f"the cull drops live pairs: {result}")
     if not float(d_k[:9].abs().max()) > 0:
         raise AssertionError("K2 produced no gradient")
     return result
@@ -916,6 +997,79 @@ def k3_entry(name, source, replaces, launches, totals,
     return entry
 
 
+def phase_train_repro():
+    """Two bf16 PTv3-base steps at patch 128 (the recipe's Adam, drop_path
+    0.3, heads not zero-initialised so the backbone gets gradients), each
+    from the same seeded weights and fresh optimizer state, with the same
+    generator seed and batch. The gathers' backward adds with atomics
+    (index_add_), so the two may differ in their last bits; they must stay
+    within the bf16 perturbation that train_reference bounds: the loss
+    within 1e-3 relative, the gradients at cosine >= 0.998."""
+    from splatformer_tpu_torch.configs.model_ptv3_base import get_config
+    from splatformer_tpu_torch.configs.train_default import \
+        get_config as train_config
+    from splatformer_tpu_torch.kernels import LAUNCHES, reset_launches
+    from splatformer_tpu_torch.models.feature_predictor import (
+        build_feature_predictor)
+    from splatformer_tpu_torch.training.optim import build_optimizer
+    from splatformer_tpu_torch.training.train_step import make_train_step
+
+    tcfg = train_config()
+    oc = tcfg.optimizer
+    cfg = get_config()
+    cfg.zeroinit = False
+    batch = make_request(300, SCENE_PAD, SCENE_N, VIEWS, HW, "cuda")
+    runs = []
+    reset_launches()
+    for _ in range(2):
+        model = build_feature_predictor(cfg, device="cuda", seed=0,
+                                        head_final_scale=0.01,
+                                        compute_dtype="bfloat16")
+        init = state_of(model)
+        opt = build_optimizer(model, dict(oc.lr_dict), oc.type, oc.eps,
+                              oc.schedule, tcfg.total_steps,
+                              oc.warmup_steps, tcfg.grad_clip_norm)
+        step = make_train_step(model, opt,
+                               image_l1_loss_weight=tcfg.image_l1_loss_weight)
+        gen = torch.Generator(device="cuda").manual_seed(tcfg.seed)
+        loss = float(step(batch, gen)["total_loss"])
+        grad = torch.cat([torch.zeros(p.numel()) if p.grad is None
+                          else p.grad.detach().float().cpu().ravel()
+                          for p in model.parameters()])
+        runs.append((loss, grad, state_of(model), init))
+        del model, opt, step
+        torch.cuda.empty_cache()
+    launches = dict(LAUNCHES)
+    (loss1, g1, sd1, init1), (loss2, g2, sd2, init2) = runs
+    same_init = all(torch.equal(init1[k], init2[k]) for k in init1)
+    param_diff = max(float((sd1[k].float() - sd2[k].float()).abs().max())
+                     for k in sd1)
+    differing = sum(int((sd1[k] != sd2[k]).sum()) for k in sd1)
+    grad_cos = float(g1 @ g2 / (g1.norm() * g2.norm()))
+    result = {"phase": "train_repro", "model": "ptv3_base", "patch": 128,
+              "compute_dtype": "bfloat16", "same_init": same_init,
+              "loss": [loss1, loss2],
+              "rel_loss_diff": abs(loss1 - loss2) / abs(loss1),
+              "max_grad_diff": float((g1 - g2).abs().max()),
+              "max_grad": float(g1.abs().max()), "grad_cos": grad_cos,
+              "max_param_diff": param_diff,
+              "state_elements_differing": differing,
+              "state_elements": sum(v.numel() for v in sd1.values()),
+              "bit_identical": differing == 0 and loss1 == loss2,
+              "launches": launches}
+    emit(result)
+    if not same_init:
+        raise AssertionError("the two runs did not start from one state")
+    if not (result["rel_loss_diff"] <= 1e-3 and grad_cos >= 0.998):
+        raise AssertionError(f"two steps from one state differ beyond the "
+                             f"bf16 perturbation: {result}")
+    expected = {"composite_fwd": 2, "composite_bwd": 2, "attention_fwd": 0,
+                "attention_bwd": 0}
+    if launches != expected:
+        raise AssertionError(f"train_repro launched {launches}, "
+                             f"want {expected}")
+
+
 def phase_training(flash=False):
     from splatformer_tpu_torch.configs.model_ptv3_base import get_config
     from splatformer_tpu_torch.configs.train_default import \
@@ -1006,6 +1160,7 @@ def main():
     phase_train_reference()
     phase_train_reference_flash()
     torch.cuda.empty_cache()
+    phase_train_repro()
     phase_training()
     torch.cuda.empty_cache()
     launches = phase_training(flash=True)  # this slice's main path

@@ -21,35 +21,57 @@
 // The max-alpha clamp gates d-alpha (raw < max_alpha); the sigma clamp at
 // 0 takes the full derivative (raster.py, the NOTE in _chunk_quantities).
 //
-// What bounds it on this card: FP32 work over the replayed (pixel, entry)
-// pairs -- K1's ~18 operations to recompute sigma and alpha for every one,
-// and for each live pair (alpha above the threshold) ~46 more: the T and S
-// recurrences, d-alpha, d-sigma, the 9 products and their sums over the
-// tile's pixels -- plus a 9-value warp reduction per entry and warp.
-// Bytes are small: 9 floats read and 9 written per entry, 36 bytes read
-// per pixel. Design: one CTA per 16x16 tile, one thread per pixel, entries
-// staged through shared memory in batches of 128. An entry column belongs
-// to exactly one tile (entries are (Gaussian, tile) pairs and tile ranges
-// are disjoint), so the per-entry sum over 256 pixels is local to the CTA
-// and needs no atomics: each warp reduces the 9 values with shuffles (and
-// skips the shuffles when none of its lanes contributes), lane 0 parks
-// the warp partial in shared memory, and after the batch one thread per
-// entry adds the 8 partials and does a plain store. The TPU kernel's seam
-// read-add-write existed only because its sequential grid shared DMA
-// chunks between tiles; it has no counterpart here. A tile stops after its
-// longest `walked`; the columns past it keep the caller's zeros. Built
-// with -fmad=false, so each pixel's values round exactly as the plain
-// PyTorch version's separate operations do; only the order of the sum
-// over pixels differs.
-#include <cuda_runtime.h>
+// What bounds it on this card: FP32 work over the live (pixel, entry)
+// pairs (alpha at or above the threshold), about 18 operations to recompute
+// sigma and alpha and ~46 more: the T and S recurrences, d-alpha, d-sigma,
+// the 9 products and their sums over the tile's pixels. Bytes are small: 9
+// floats read and 9 written per entry, 36 bytes read per pixel. Built with
+// -fmad=false (each pixel's values round as the plain version's separate
+// operations do), so no product fuses and the FP32 pipes run at half the
+// rate the 67 TFLOP/s peak counts; only 8% of the replayed pairs are live,
+// so skipping dead ones is the way down.
+//
+// Design (layout, staging, cull and tile order: composite_common.cuh, as
+// in K1): entries are staged in batches of kBatch by cp.async into one of
+// two shared buffers while the other is consumed, and the CTA computes the
+// exact keep bit per (entry, warp box). A culled entry is dead at every
+// pixel of the box, so its contribution there is exactly zero. Each warp
+// replays only its kept entries below its longest walk, kGroup at a time:
+// sigma and alpha of the group first (instruction-level parallelism), then
+// each pixel's serial T and S updates and its 9 values per entry, and one
+// reduction of the group's 27 values over the warp by halving exchanges
+// (31 shuffles; lane l ends with slot l's sum, in a fixed order). An entry
+// column belongs to exactly one tile, so the per-entry sum over the tile's
+// pixels needs no atomics: each warp parks its partials of its kept entries
+// in shared memory, and after the batch one thread per (row, entry) adds
+// the partials of the warps that replayed it, in warp order, and does one
+// plain store. A tile stops after its longest walk; columns past it keep
+// the caller's zeros. Tiles are taken heaviest first, so the longest
+// replays do not trail the launch. Deterministic: every sum has a fixed
+// order.
+#include "composite_common.cuh"
 
 namespace {
 
-constexpr int kTile = 16;
-constexpr int kPixels = kTile * kTile;  // threads per CTA
-constexpr int kWarps = kPixels / 32;
-constexpr int kBatch = 128;             // entries staged per batch
-constexpr int kRows = 9;                // attribute rows used of the 16
+constexpr int kBatch = 64;               // entries staged per batch
+constexpr int kGroup = 3;                // entries reduced together
+constexpr int kSlots = 32;               // kGroup * kRows values, padded
+constexpr int kPartStride = kBatch + 1;  // conflict-free partial stores
+static_assert(kGroup * kRows <= kSlots, "a group's values fill the slots");
+
+// One halving step of the warp reduction: lanes with bit `kWidth` set keep
+// the upper half of v[0, 2 kWidth), the others the lower half, each adding
+// its partner's copy.
+template <int kWidth>
+__device__ __forceinline__ void halve(float (&v)[kSlots], int lane) {
+  const bool up = lane & kWidth;
+#pragma unroll
+  for (int i = 0; i < kWidth; ++i) {
+    const float send = up ? v[i] : v[i + kWidth];
+    const float keep = up ? v[i + kWidth] : v[i];
+    v[i] = keep + __shfl_xor_sync(kFull, send, kWidth);
+  }
+}
 
 __global__ void __launch_bounds__(kPixels)
 composite_bwd_kernel(const float* __restrict__ packed, long long budget,
@@ -59,26 +81,34 @@ composite_bwd_kernel(const float* __restrict__ packed, long long budget,
                      const int* __restrict__ walked,
                      const float* __restrict__ g_out,
                      float* __restrict__ d_packed) {
-  __shared__ float s_ent[kRows][kBatch];
-  __shared__ float s_part[kWarps][kRows][kBatch];
-  __shared__ int s_max_walked;
+  __shared__ Batch<kBatch> s_ent[2];
+  __shared__ uint8_t s_keep[kWarps][kBatch];
+  __shared__ float s_part[kWarps][kRows][kPartStride];
+  __shared__ int s_wmax[kWarps];
 
-  const int t = blockIdx.x;
-  const int p = threadIdx.x;
-  const int lane = p & 31;
-  const int warp = p >> 5;
+  const int t = heaviest_first(tile_start);
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
   const int local = t % tiles_img;
-  const float px = static_cast<float>((local % tiles_x) * kTile + p % kTile);
-  const float py = static_cast<float>((local / tiles_x) * kTile + p / kTile);
+  const int tx0 = (local % tiles_x) * kTile;
+  const int ty0 = (local / tiles_x) * kTile;
+  const int col = 8 * (warp & 1) + (lane & 7);
+  const int row = 4 * (warp >> 1) + (lane >> 3);
+  const float px = static_cast<float>(tx0 + col);
+  const float py = static_cast<float>(ty0 + row);
   const int start = tile_start[t];
-  const long long pix = static_cast<long long>(t) * kPixels + p;
+  const long long pix = static_cast<long long>(t) * kPixels + row * kTile + col;
   const int n_walk = walked[pix];
+  const float thr_cull = cull_threshold(alpha_threshold);
 
-  if (p == 0) s_max_walked = 0;
+  const int wmax = __reduce_max_sync(kFull, n_walk);
+  if (lane == 0) s_wmax[warp] = wmax;
   __syncthreads();
-  atomicMax(&s_max_walked, n_walk);
-  __syncthreads();
-  const int stop = start + s_max_walked;
+  int longest = 0;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) longest = max(longest, s_wmax[w]);
+  const int stop = start + longest;
 
   const float g0 = g_out[pix * 4 + 0];
   const float g1 = g_out[pix * 4 + 1];
@@ -88,77 +118,110 @@ composite_bwd_kernel(const float* __restrict__ packed, long long budget,
                 + g2 * out[pix * 4 + 2];
   float T = 1.f;
 
-  for (int base = start; base < stop; base += kBatch) {
+  if (start < stop) stage(s_ent[0], packed, budget, start, min(kBatch, stop - start));
+  for (int base = start, buf = 0; base < stop; base += kBatch, buf ^= 1) {
     const int n = min(kBatch, stop - base);
-    // barrier: the previous batch's entries and partials are consumed
+    cp_async_wait_all();
+    // barrier: this batch has landed for every thread, and the previous
+    // batch's keep bits and partials are consumed
     __syncthreads();
-    for (int i = p; i < kRows * kBatch; i += kPixels) {
-      const int k = i / kBatch;
-      const int jj = i % kBatch;
-      if (jj < n) s_ent[k][jj] = packed[k * budget + base + jj];
+    const Batch<kBatch>& s = s_ent[buf];
+    cull_batch(s, n, tx0, ty0, thr_cull, s_keep);
+    if (base + kBatch < stop) {
+      stage(s_ent[buf ^ 1], packed, budget, base + kBatch,
+            min(kBatch, stop - base - kBatch));
     }
     __syncthreads();
-    for (int jj = 0; jj < n; ++jj) {
-      float v[kRows];
+
+    // this warp's pixels replay entries j < limit of the batch
+    const int limit = min(n, wmax - (base - start));
+    for (int c = 0; c * 32 < limit; ++c) {
+      unsigned word = __ballot_sync(
+          kFull, c * 32 + lane < limit && s_keep[warp][c * 32 + lane] != 0);
+      while (word) {  // warp-uniform
+        int jj[kGroup];
+        float4 ea[kGroup], eb[kGroup];
+        float ex[kGroup], raw[kGroup], alpha[kGroup], dx[kGroup], dy[kGroup];
 #pragma unroll
-      for (int k = 0; k < kRows; ++k) v[k] = 0.f;
-      bool live = false;
-      if (base + jj - start < n_walk) {
-        const float dx = s_ent[0][jj] - px;
-        const float dy = s_ent[1][jj] - py;
-        const float c0 = s_ent[2][jj];
-        const float c1 = s_ent[3][jj];
-        const float c2 = s_ent[4][jj];
-        float sigma = 0.5f * (c0 * dx * dx + c2 * dy * dy) + c1 * dx * dy;
-        sigma = fmaxf(sigma, 0.f);
-        const float ex = expf(-sigma);
-        const float raw = s_ent[5][jj] * ex;
-        const float alpha = fminf(max_alpha, raw);
-        if (alpha >= alpha_threshold) {
-          live = true;
-          const float gc = g0 * s_ent[6][jj] + g1 * s_ent[7][jj]
-                           + g2 * s_ent[8][jj];
-          const float vis = alpha * T;
+        for (int q = 0; q < kGroup; ++q) {
+          jj[q] = word ? c * 32 + __ffs(word) - 1 : -1;
+          word &= word - 1;
+        }
+#pragma unroll
+        for (int q = 0; q < kGroup; ++q) {
+          const int j = jj[q] >= 0 ? jj[q] : jj[0];
+          ea[q] = s.a[j];
+          eb[q] = s.b[j];
+          dx[q] = ea[q].x - px;
+          dy[q] = ea[q].y - py;
+          float sigma = 0.5f * (ea[q].z * dx[q] * dx[q]
+                                + eb[q].x * dy[q] * dy[q])
+                        + ea[q].w * dx[q] * dy[q];
+          sigma = fmaxf(sigma, 0.f);
+          ex[q] = expf(-sigma);
+          raw[q] = eb[q].y * ex[q];
+          alpha[q] = fminf(max_alpha, raw[q]);
+        }
+        float v[kSlots];
+#pragma unroll
+        for (int i = 0; i < kSlots; ++i) v[i] = 0.f;
+        bool any = false;
+#pragma unroll
+        for (int q = 0; q < kGroup; ++q) {
+          if (jj[q] < 0 || base - start + jj[q] >= n_walk
+              || alpha[q] < alpha_threshold) {
+            continue;
+          }
+          any = true;
+          const float c0 = ea[q].z, c1 = ea[q].w, c2 = eb[q].x;
+          const float gc = g0 * eb[q].z + g1 * eb[q].w + g2 * s.c[jj[q]];
+          const float vis = alpha[q] * T;
           s_rem = s_rem - gc * vis;
-          const float da = T * gc - (s_rem + gt_term) / (1.f - alpha);
-          T = T * (1.f - alpha);
-          if (raw < max_alpha) {
-            const float dsig = -raw * da;
-            v[0] = dsig * (c0 * dx + c1 * dy);
-            v[1] = dsig * (c1 * dx + c2 * dy);
-            v[2] = 0.5f * dsig * dx * dx;
-            v[3] = dsig * dx * dy;
-            v[4] = 0.5f * dsig * dy * dy;
-            v[5] = da * ex;
+          const float da = T * gc - (s_rem + gt_term) / (1.f - alpha[q]);
+          T = T * (1.f - alpha[q]);
+          float* vq = v + q * kRows;
+          if (raw[q] < max_alpha) {
+            const float dsig = -raw[q] * da;
+            vq[0] = dsig * (c0 * dx[q] + c1 * dy[q]);
+            vq[1] = dsig * (c1 * dx[q] + c2 * dy[q]);
+            vq[2] = 0.5f * dsig * dx[q] * dx[q];
+            vq[3] = dsig * dx[q] * dy[q];
+            vq[4] = 0.5f * dsig * dy[q] * dy[q];
+            vq[5] = da * ex[q];
           }
-          v[6] = g0 * vis;
-          v[7] = g1 * vis;
-          v[8] = g2 * vis;
+          vq[6] = g0 * vis;
+          vq[7] = g1 * vis;
+          vq[8] = g2 * vis;
         }
-      }
-      // warp-uniform: every lane iterates the same jj
-      if (__any_sync(0xffffffffu, live)) {
-#pragma unroll
-        for (int k = 0; k < kRows; ++k) {
-#pragma unroll
-          for (int off = 16; off > 0; off >>= 1) {
-            v[k] += __shfl_xor_sync(0xffffffffu, v[k], off);
-          }
+        if (__any_sync(kFull, any)) {
+          halve<16>(v, lane);
+          halve<8>(v, lane);
+          halve<4>(v, lane);
+          halve<2>(v, lane);
+          halve<1>(v, lane);
         }
-      }
-      if (lane == 0) {
-#pragma unroll
-        for (int k = 0; k < kRows; ++k) s_part[warp][k][jj] = v[k];
+        // lane l holds slot l's sum: row l % 9 of group entry l / 9 (all
+        // zeros when no lane replayed the group live)
+        if (lane < kGroup * kRows) {
+          const int q = lane / kRows;
+          const int j = q == 0 ? jj[0] : (q == 1 ? jj[1] : jj[2]);
+          if (j >= 0) s_part[warp][lane - q * kRows][j] = v[0];
+        }
       }
     }
     __syncthreads();
-    if (p < n) {
-#pragma unroll
-      for (int k = 0; k < kRows; ++k) {
+
+    for (int i = tid; i < kRows * kBatch; i += kPixels) {
+      const int k = i / kBatch;
+      const int e = i % kBatch;
+      if (e < n) {
+        const int rel = base - start + e;
         float acc = 0.f;
 #pragma unroll
-        for (int w = 0; w < kWarps; ++w) acc += s_part[w][k][p];
-        d_packed[k * budget + base + p] = acc;
+        for (int w = 0; w < kWarps; ++w) {
+          if (s_keep[w][e] && rel < s_wmax[w]) acc += s_part[w][k][e];
+        }
+        d_packed[k * budget + base + e] = acc;
       }
     }
   }

@@ -3,8 +3,9 @@ interface, loaded with ctypes.
 
 Each source is compiled by its own ``nvcc`` process for ``sm_90a`` at first
 use, into ``build/kernels/`` at the root of the checkout (listed in
-.gitignore). The library's file name carries a hash of the source and the
-flags, so an edited source is rebuilt and a stale library is never loaded.
+.gitignore). The library's file name carries a hash of the source, the
+headers it includes and the flags, so an edited source or header is rebuilt
+and a stale library is never loaded.
 ``build_all`` starts one nvcc per source, all at once.
 """
 from __future__ import annotations
@@ -26,6 +27,9 @@ SOURCES = {"composite_fwd": "composite_fwd.cu",
            "composite_bwd": "composite_bwd.cu",
            "attention_fwd": "attention_fwd.cu",
            "attention_bwd": "attention_bwd.cu"}
+# kernel library name -> headers under csrc/ that its source includes
+INCLUDES = {"composite_fwd": ("composite_common.cuh",),
+            "composite_bwd": ("composite_common.cuh",)}
 
 _ARCH = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3")
 _SHARED = ("-shared", "-Xcompiler", "-fPIC")
@@ -53,9 +57,9 @@ def nvcc_path() -> Path:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC_DIR / SOURCES[name]
-    digest = hashlib.sha1(src.read_bytes()
-                          + " ".join(NVCC_FLAGS[name]).encode())
+    text = b"".join((CSRC_DIR / f).read_bytes()
+                    for f in (SOURCES[name], *INCLUDES.get(name, ())))
+    digest = hashlib.sha1(text + " ".join(NVCC_FLAGS[name]).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 

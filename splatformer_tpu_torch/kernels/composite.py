@@ -19,27 +19,83 @@ with respect to ``packed_t``.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+import re
+from typing import Dict, Tuple
 
 import torch
 
 from splatformer_tpu_torch.kernels import LAUNCHES
-from splatformer_tpu_torch.kernels.build import load
+from splatformer_tpu_torch.kernels.build import CSRC_DIR, load
 
 TILE = 16
 PIXELS = TILE * TILE
 USED_ROWS = 9
 PLAIN_CHUNK = 64  # entries per step of the plain version's walk
+# K1 and K2 give each warp an 8x4 box of its tile's pixels: warp w covers
+# columns 8 (w % 2) .. +7 and rows 4 (w / 2) .. +3
+BOX_W, BOX_H = 8, 4
+BOXES = PIXELS // (BOX_W * BOX_H)
 
 
-def _library() -> ctypes.CDLL:
-    lib = load("composite_fwd")
-    fn = lib.composite_fwd
-    if fn.argtypes is None:
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [p, ctypes.c_longlong, p, i, i, i, f, f, f, p, p, p]
-        fn.restype = ctypes.c_int
+def _cull_constants() -> Dict[str, float]:
+    """The kernels' cull constants (kCull*), read from the header that
+    defines them for both kernels, so the plain version cannot drift."""
+    text = (CSRC_DIR / "composite_common.cuh").read_text()
+    return {k: float(v) for k, v in re.findall(
+        r"constexpr float (kCull\w+) = ([-+.0-9e]+)f;", text)}
+
+
+# the kernels' cull: a box is culled when op exp(-sigma_lb) stays under
+# alpha_threshold (1 - CULL_SHARE), sigma_lb being the box minimum of sigma
+# less CULL_REL of the terms' size and CULL_ABS; kept when the terms' size
+# passes CULL_MAX_SIZE
+CULL_SHARE, CULL_REL, CULL_ABS, CULL_MAX_SIZE = (
+    _cull_constants()[k]
+    for k in ("kCullShare", "kCullRel", "kCullAbs", "kCullMaxSize"))
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# C entry point -> its argument types (csrc/composite_fwd.cu, _bwd.cu)
+_ARGTYPES = {
+    "composite_fwd": [_P, ctypes.c_longlong, _P, _I, _I, _I, _F, _F, _F, _P,
+                      _P, _P],
+    "composite_bwd": [_P, ctypes.c_longlong, _P, _I, _I, _I, _F, _F, _P, _P,
+                      _P, _P, _P]}
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C signatures of the entry points ``lib`` exports (K1's
+    ``composite_fwd``, K2's ``composite_bwd``); returns ``lib``."""
+    for name, argtypes in _ARGTYPES.items():
+        fn = getattr(lib, name, None)
+        if fn is not None and fn.argtypes is None:
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
     return lib
+
+
+def _library(name: str) -> ctypes.CDLL:
+    return bind(load(name))
+
+
+def launch_fwd(lib: ctypes.CDLL, packed_t: torch.Tensor,
+               tile_start: torch.Tensor, tiles_x: int, tiles_img: int,
+               alpha_threshold: float, max_alpha: float,
+               transmittance_eps: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch ``lib``'s K1 on contiguous, checked CUDA tensors; returns
+    (out, walked)."""
+    num_tiles = tile_start.shape[0] - 1
+    out = torch.empty((num_tiles, PIXELS, 4), dtype=torch.float32,
+                      device=packed_t.device)
+    walked = torch.empty((num_tiles, PIXELS), dtype=torch.int32,
+                         device=packed_t.device)
+    stream = torch.cuda.current_stream(packed_t.device).cuda_stream
+    err = lib.composite_fwd(
+        packed_t.data_ptr(), packed_t.shape[1], tile_start.data_ptr(),
+        num_tiles, tiles_x, tiles_img, alpha_threshold, max_alpha,
+        transmittance_eps, out.data_ptr(), walked.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"composite_fwd launch failed: cudaError {err}")
+    return out, walked
 
 
 def _check(packed_t: torch.Tensor, tile_start: torch.Tensor, tiles_x: int,
@@ -68,26 +124,17 @@ def composite_fwd(packed_t: torch.Tensor, tile_start: torch.Tensor,
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """-> (out (num_tiles, 256, 4), walked (num_tiles, 256)). CUDA tensors
     launch the kernel (or raise); CPU tensors take the plain version."""
-    num_tiles = _check(packed_t, tile_start, tiles_x, tiles_img)
+    _check(packed_t, tile_start, tiles_x, tiles_img)
     if packed_t.device.type == "cpu":
         return composite_fwd_plain(packed_t, tile_start, tiles_x, tiles_img,
                                    alpha_threshold, max_alpha,
                                    transmittance_eps)
     if packed_t.device.type != "cuda":
         raise ValueError(f"no composite_fwd for device {packed_t.device}")
-    packed_t = packed_t.contiguous()
-    tile_start = tile_start.contiguous()
-    out = torch.empty((num_tiles, PIXELS, 4), dtype=torch.float32,
-                      device=packed_t.device)
-    walked = torch.empty((num_tiles, PIXELS), dtype=torch.int32,
-                         device=packed_t.device)
-    stream = torch.cuda.current_stream(packed_t.device).cuda_stream
-    err = _library().composite_fwd(
-        packed_t.data_ptr(), packed_t.shape[1], tile_start.data_ptr(),
-        num_tiles, tiles_x, tiles_img, alpha_threshold, max_alpha,
-        transmittance_eps, out.data_ptr(), walked.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"composite_fwd launch failed: cudaError {err}")
+    out, walked = launch_fwd(_library("composite_fwd"),
+                             packed_t.contiguous(), tile_start.contiguous(),
+                             tiles_x, tiles_img, alpha_threshold, max_alpha,
+                             transmittance_eps)
     LAUNCHES["composite_fwd"] += 1
     return out, walked
 
@@ -153,14 +200,106 @@ def composite_fwd_plain(packed_t: torch.Tensor, tile_start: torch.Tensor,
     return out, walked
 
 
-def _library_bwd() -> ctypes.CDLL:
-    lib = load("composite_bwd")
-    fn = lib.composite_bwd
-    if fn.argtypes is None:
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [p, ctypes.c_longlong, p, i, i, i, f, f, p, p, p, p, p]
-        fn.restype = ctypes.c_int
-    return lib
+def pixel_box() -> torch.Tensor:
+    """(256,) int64: the warp box (0-7) of each pixel p of a tile."""
+    p = torch.arange(PIXELS)
+    return (p // TILE // BOX_H) * (TILE // BOX_W) + (p % TILE) // BOX_W
+
+
+def warp_box_max(x: torch.Tensor) -> torch.Tensor:
+    """(T, 8): the largest of x (T, 256) over each warp's 8x4 pixel box."""
+    box = pixel_box().to(x.device)
+    return torch.stack([x[:, box == w].max(dim=1).values
+                        for w in range(BOXES)], dim=1)
+
+
+def warp_box_keep_plain(packed_t: torch.Tensor, tile_start: torch.Tensor,
+                        tiles_x: int, tiles_img: int,
+                        alpha_threshold: float = 1.0 / 255.0,
+                        chunk: int = 256) -> torch.Tensor:
+    """K1's and K2's keep bit of every (tile, warp box, entry), in plain
+    PyTorch on any device, float32 as the kernels compute it. Returns
+    (num_tiles, 8, longest range) bool: [t, w, j] for entry tile_start[t] + j
+    and box w (``pixel_box``), False past the tile's range.
+
+    A box is dropped only when the entry's alpha provably stays under the
+    threshold at every pixel of the box: op exp(-sigma_lb) <
+    alpha_threshold (1 - CULL_SHARE), where sigma_lb is the continuous
+    minimum of sigma over the box of pixel centres (0 if the centre lies
+    inside it, else the least of the four edges' minima at their clamped
+    critical points) less CULL_REL of the terms' size (|c0|/2 dx^2 + |c1|
+    |dx dy| + |c2|/2 dy^2 at the box's largest |dx|, |dy|) and CULL_ABS. Kept
+    unless c0 > 0, c2 > 0, c0 c2 > c1^2 and every value is finite."""
+    num_tiles = _check(packed_t, tile_start, tiles_x, tiles_img)
+    dev = packed_t.device
+    start = tile_start[:-1].to(torch.int64)
+    length = (tile_start[1:] - tile_start[:-1]).to(torch.int64)
+    local = torch.arange(num_tiles, device=dev) % tiles_img
+    w = torch.arange(BOXES, device=dev)
+    bx = ((local % tiles_x) * TILE)[:, None] + BOX_W * (w % 2)[None, :]
+    by = (torch.div(local, tiles_x, rounding_mode="floor") * TILE)[:, None] \
+        + BOX_H * torch.div(w, 2, rounding_mode="floor")[None, :]
+    bx = bx.to(torch.float32)[:, :, None]                       # (T, 8, 1)
+    by = by.to(torch.float32)[:, :, None]
+    f32 = dict(dtype=torch.float32, device=dev)
+    thr = (torch.tensor(alpha_threshold, **f32)
+           * (torch.tensor(1.0, **f32) - torch.tensor(CULL_SHARE, **f32)))
+    cull_ok = bool(thr > 0)
+
+    def quad(c0, c1, c2, dx, dy):
+        return 0.5 * (c0 * dx * dx + c2 * dy * dy) + c1 * dx * dy
+
+    def clamp(v, lo, hi):
+        return torch.minimum(torch.maximum(v, lo), hi)
+
+    max_len = int(length.max()) if num_tiles else 0
+    keep = torch.zeros((num_tiles, BOXES, max_len), dtype=torch.bool,
+                       device=dev)
+    for base in range(0, max_len, chunk):
+        j = base + torch.arange(min(chunk, max_len - base), device=dev)
+        in_range = j[None, :] < length[:, None]                 # (T, C)
+        idx = torch.where(in_range, start[:, None] + j[None, :], 0)
+        mx, my, c0, c1, c2, op = (packed_t[k, idx][:, None, :]
+                                  for k in range(6))            # (T, 1, C)
+        kx, ky = c1 / c2, c1 / c0
+        testable = (torch.isfinite(torch.stack([mx, my, c0, c1, c2, op, kx,
+                                                ky])).all(dim=0)
+                    & (c0 > 0) & (c2 > 0) & (c0 * c2 > c1 * c1))
+        xlo, xhi = mx - (bx + 7.0), mx - bx                     # (T, 8, C)
+        ylo, yhi = my - (by + 3.0), my - by
+        outside = (xlo > 0) | (xhi < 0) | (ylo > 0) | (yhi < 0)
+        edges = torch.stack([
+            quad(c0, c1, c2, xlo, clamp(-(kx * xlo), ylo, yhi)),
+            quad(c0, c1, c2, xhi, clamp(-(kx * xhi), ylo, yhi)),
+            quad(c0, c1, c2, clamp(-(ky * ylo), xlo, xhi), ylo),
+            quad(c0, c1, c2, clamp(-(ky * yhi), xlo, xhi), yhi)])
+        s = torch.where(outside & testable, edges.min(dim=0).values, 0.0)
+        ax = torch.maximum(xlo.abs(), xhi.abs())
+        ay = torch.maximum(ylo.abs(), yhi.abs())
+        size = 0.5 * c0 * ax * ax + c1.abs() * ax * ay + 0.5 * c2 * ay * ay
+        lb = torch.clamp(s - (CULL_REL * size + CULL_ABS), min=0.0)
+        culled = (testable & (size <= CULL_MAX_SIZE)
+                  & (op * torch.exp(-lb) < thr) & cull_ok)
+        keep[:, :, j] = ~culled & in_range[:, None, :]
+    return keep
+
+
+def launch_bwd(lib: ctypes.CDLL, packed_t: torch.Tensor,
+               tile_start: torch.Tensor, tiles_x: int, tiles_img: int,
+               out: torch.Tensor, walked: torch.Tensor, g_out: torch.Tensor,
+               alpha_threshold: float, max_alpha: float) -> torch.Tensor:
+    """Launch ``lib``'s K2 on contiguous, checked CUDA tensors; returns
+    d_packed."""
+    d_packed = torch.zeros_like(packed_t)
+    stream = torch.cuda.current_stream(packed_t.device).cuda_stream
+    err = lib.composite_bwd(
+        packed_t.data_ptr(), packed_t.shape[1], tile_start.data_ptr(),
+        tile_start.shape[0] - 1, tiles_x, tiles_img, alpha_threshold,
+        max_alpha, out.data_ptr(), walked.data_ptr(), g_out.data_ptr(),
+        d_packed.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"composite_bwd launch failed: cudaError {err}")
+    return d_packed
 
 
 def _check_saved(num_tiles: int, out: torch.Tensor, walked: torch.Tensor,
@@ -194,17 +333,10 @@ def composite_bwd(packed_t: torch.Tensor, tile_start: torch.Tensor,
                                    max_alpha)
     if packed_t.device.type != "cuda":
         raise ValueError(f"no composite_bwd for device {packed_t.device}")
-    packed_t = packed_t.contiguous()
-    d_packed = torch.zeros_like(packed_t)
-    stream = torch.cuda.current_stream(packed_t.device).cuda_stream
-    err = _library_bwd().composite_bwd(
-        packed_t.data_ptr(), packed_t.shape[1],
-        tile_start.contiguous().data_ptr(),
-        num_tiles, tiles_x, tiles_img, alpha_threshold, max_alpha,
-        out.contiguous().data_ptr(), walked.contiguous().data_ptr(),
-        g_out.contiguous().data_ptr(), d_packed.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"composite_bwd launch failed: cudaError {err}")
+    d_packed = launch_bwd(_library("composite_bwd"), packed_t.contiguous(),
+                          tile_start.contiguous(), tiles_x, tiles_img,
+                          out.contiguous(), walked.contiguous(),
+                          g_out.contiguous(), alpha_threshold, max_alpha)
     LAUNCHES["composite_bwd"] += 1
     return d_packed
 

@@ -165,6 +165,56 @@ def test_composite_bwd_kernel_empty_and_ragged_tiles(opaque):
         assert bool((walked.max(dim=1).values < lengths)[1:].all())
 
 
+@pytest.mark.cuda
+def test_composite_kernels_bit_identical_across_launches():
+    """K1 and K2 launched twice on the same inputs (the entries of a
+    20k-Gaussian scene under 4 views at 128^2, a seeded cotangent) give the
+    same out, walked and d_packed bit for bit: no atomics, every sum in a
+    fixed order."""
+    _card()
+    from splatformer_tpu_torch.data.synthetic import orbit_cameras, random_scene
+    from splatformer_tpu_torch.kernels.composite import (composite_bwd,
+                                                         composite_fwd)
+    from splatformer_tpu_torch.ops.render import prepare_entries
+    from splatformer_tpu_torch.ops.types import RasterizeConfig
+    scene = random_scene(np.random.default_rng(4), 20_000, sh_degree=1)
+    e = prepare_entries(scene, orbit_cameras(4, 128, 128), RasterizeConfig())
+    args = (e.packed_t, e.tile_start, 8, 64)
+    out, walked = composite_fwd(*args)
+    out2, walked2 = composite_fwd(*args)
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    g_out = torch.randn(out.shape, generator=gen, device="cuda")
+    d = composite_bwd(*args, out, walked, g_out)
+    d2 = composite_bwd(*args, out, walked, g_out)
+    torch.cuda.synchronize()
+    assert torch.equal(out, out2) and torch.equal(walked, walked2)
+    assert torch.equal(d, d2) and bool(d.any())
+
+
+@pytest.mark.cuda
+def test_composite_kernels_match_plain_on_adversarial_entries():
+    """K1 and K2 against their plain versions on the finite adversarial
+    entries of tests/test_torch_composite_cull.py (alpha within a few ulps
+    of the threshold at the nearest pixel, near-degenerate and
+    non-definite conics, centres on box edges and corners): K1's out within
+    1e-5 and walked exact, K2 within K2_TOL of each row's largest
+    magnitude with exact zeros outside the replayed ranges."""
+    _card()
+    from test_torch_composite_cull import adversarial_entries
+
+    from splatformer_tpu_torch.kernels.composite import (composite_fwd,
+                                                         composite_fwd_plain)
+    packed, tile_start, tiles_x, tiles_img = adversarial_entries(
+        finite_only=True)
+    args = (packed.cuda(), tile_start.cuda(), tiles_x, tiles_img)
+    out_k, walked_k = composite_fwd(*args)
+    torch.cuda.synchronize()
+    out_p, walked_p = composite_fwd_plain(*args)
+    assert float((out_k - out_p).abs().max()) <= 1e-5
+    assert torch.equal(walked_k, walked_p)
+    _check_k2(*args, seed=7)
+
+
 # K3 against its plain version (chip_smoke.py K3_*_TOL): float32 sums in
 # another order (~1e-6 of the largest magnitude); bfloat16 also rounds P, dS
 # and the outputs to bfloat16 in both, where a float32 difference can flip a
