@@ -75,13 +75,32 @@ Phases, each printing one JSON line:
             num_dropped 0, the heads updated, peak memory under 60 GB, K1
             and K2 launched once per step;
   training_flash  the same with enable_flash (patch 1024): K1 and K2 once,
-            K3-fwd and K3-bwd 22 times each per step. The slice's main path.
+            K3-fwd and K3-bwd 22 times each per step; the kernels line's
+            ``launches``;
+  loop      the training entry point, training/loop.py:run_training, on
+            the card: PTv3-base at full width, bf16, the synthetic dataset
+            at 2 scenes of 100k Gaussians (padded to 100352) x 4 views at
+            256^2, calibrated raster budgets, LPIPS weight 1.0 on
+            write_synthetic_weights' file; 20 steps with an eval and a save
+            at step 10, then a second call that resumes from the step-20
+            checkpoint to step 25 (an eval at 20): finite losses,
+            num_dropped 0 on every step, the eval.csv rows, the resume at
+            the stored step, K1 and K2 launched exactly as often as the
+            calls render (steps, eval renders of the refined and the input
+            scenes, ground truth, train images) and K2 once a step; the
+            kernels line's ``loop_launches``;
+  bench     ``python -m splatformer_tpu_torch.bench`` in its own process
+            (100k Gaussians, 4 views at 256^2: rasterizer forward +
+            backward, then a PTv3-base bf16 train step): its final JSON
+            line parses, with bench.py's keys, positive rates and the
+            card's name and power limit.
 Launch counts are reset at the start of each phase and checked per phase.
 Then the {"kernels": [...]} line, the card's name and power limit, and as
 the last line {"ok": true, "device": {...}}. Any failure raises and exits
 non-zero; without a CUDA device it exits 1 before any phase.
 """
 import json
+import os
 import re
 import subprocess
 import sys
@@ -1141,6 +1160,132 @@ def phase_training(flash=False):
     return launches
 
 
+LOOP_DIR = "build/chip_smoke_loop"
+LOOP_STEPS, LOOP_RESUMED_TO, LOOP_EVAL = 20, 25, 10
+
+
+def phase_loop():
+    """run_training twice on one output directory (see the module
+    docstring); returns the two calls' summed launch counts."""
+    import shutil
+
+    from splatformer_tpu_torch.configs import build_full_config
+    from splatformer_tpu_torch.kernels import LAUNCHES, reset_launches
+    from splatformer_tpu_torch.models.lpips import write_synthetic_weights
+    from splatformer_tpu_torch.training import checkpoints as ckpt_lib
+    from splatformer_tpu_torch.training.loop import run_training
+
+    shutil.rmtree(LOOP_DIR, ignore_errors=True)
+    lpips_path = f"{LOOP_DIR}/lpips_vgg.npz"
+    write_synthetic_weights(lpips_path)
+    n_scenes = 2
+    cfg = build_full_config(overrides=[
+        f"dataset.n_scenes={n_scenes}", f"dataset.n_gaussians={SCENE_N}",
+        f"dataset.pad_to={SCENE_PAD}", f"dataset.max_gs_num={SCENE_PAD}",
+        f"dataset.image_size={HW}", f"dataset.image_per_scene={VIEWS}",
+        "train.log_interval=1", f"train.eval_interval={LOOP_EVAL}",
+        # saves at opt_step + 1 = save_interval: step 10
+        f"train.save_interval={LOOP_EVAL + 1}",
+        f"train.lpips_weights_path='{lpips_path}'"])
+    if not (cfg.train.bf16 and cfg.train.auto_raster_budget
+            and cfg.train.lpips_loss_weight == 1.0):
+        raise AssertionError(f"loop config: {cfg.train}")
+    out = f"{LOOP_DIR}/run"
+    calls, launches = [], dict.fromkeys(LAUNCHES, 0)
+    for steps in (LOOP_STEPS, LOOP_RESUMED_TO):
+        start = ckpt_lib.latest_step(f"{out}/checkpoints") or 0
+        reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state, _, _, rcfg, lpips_fn = run_training(cfg, out, max_steps=steps)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        with open(f"{out}/history.json") as f:
+            history = json.load(f)
+        for k, v in LAUNCHES.items():
+            launches[k] += v
+        evals = [s for s in range(start, steps)
+                 if s > 0 and s % LOOP_EVAL == 0]
+        images = [s for s in range(start, steps)
+                  if s % cfg.train.log_image_interval == 0]
+        calls.append({
+            "phase": "loop", "call": len(calls), "start_step": start,
+            "first_logged_step": history[0]["step"] if history else None,
+            "end_step": state.step, "seconds": seconds,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "raster": {"tiers": list(rcfg.tiers),
+                       "tiles_per_gauss": rcfg.tiles_per_gauss,
+                       "max_intersects": rcfg.max_intersects},
+            "lpips_on": lpips_fn is not None, "evals": evals,
+            "launches": dict(LAUNCHES),
+            # GT of every scene, each step, the refined and the input render
+            # of every test scene (min(4, n_scenes)) at each eval, and the
+            # train images
+            "expected_k1": n_scenes + (steps - start)
+            + 2 * min(4, n_scenes) * len(evals) + len(images),
+            "expected_k2": steps - start,
+            "history": history})
+    with open(f"{out}/eval.csv") as f:
+        rows = [line.strip().split(",") for line in f]
+    with open(f"{out}/best.json") as f:
+        best = json.load(f)
+    for c in calls:
+        emit({**{k: v for k, v in c.items() if k != "history"},
+              **{k: [h[k] for h in c["history"]]
+                 for k in ("total_loss", "lpips", "train_psnr", "num_dropped",
+                           "steps_per_s")}})
+    emit({"phase": "loop_summary", "model": "ptv3_base", "bf16": True,
+          "eval_csv": rows, "launches": launches, "best": best,
+          "checkpoints": sorted(os.listdir(f"{out}/checkpoints"))})
+    for c in calls:
+        for h in c["history"]:
+            if not (all(np.isfinite(h[k]) for k in
+                        ("total_loss", "image_l1", "lpips", "train_psnr"))
+                    and h["num_dropped"] == 0):
+                raise AssertionError(f"bad loop step: {h}")
+        got = (c["launches"]["composite_fwd"], c["launches"]["composite_bwd"])
+        if got != (c["expected_k1"], c["expected_k2"]):
+            raise AssertionError(f"loop call {c['call']} launched {got}, "
+                                 f"want {(c['expected_k1'], c['expected_k2'])}")
+        if not c["lpips_on"] or c["end_step"] != c["history"][-1]["step"] + 1:
+            raise AssertionError(f"loop call {c['call']}: {c['end_step']}")
+    if [c["start_step"] for c in calls] != [0, LOOP_STEPS] or [
+            c["first_logged_step"] for c in calls] != [0, LOOP_STEPS]:
+        raise AssertionError("the second call did not resume at step "
+                             f"{LOOP_STEPS}: {[c['start_step'] for c in calls]}")
+    if ([r[:2] for r in rows[1:]] != [["synthetic", "10"], ["synthetic", "20"]]
+            or not all(np.isfinite(float(x)) for r in rows[1:]
+                       for x in r[2:])):
+        raise AssertionError(f"eval.csv rows: {rows}")
+    return launches
+
+
+def phase_bench():
+    """The port bench in its own process, as a user runs it."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "splatformer_tpu_torch.bench"],
+        capture_output=True, text=True, timeout=900)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"bench exited {proc.returncode}: "
+                             f"{proc.stderr[-2000:]}")
+    lines = proc.stdout.strip().splitlines()
+    partial, final = json.loads(lines[0]), json.loads(lines[-1])
+    emit({"phase": "bench", "seconds": seconds, "lines": len(lines),
+          "final": final, "stderr_tail": proc.stderr[-600:]})
+    extra = final["extra"]
+    if not (len(lines) == 2 and partial["extra"].get("partial") is True
+            and set(final) == {"metric", "value", "unit", "vs_baseline",
+                               "extra"}
+            and final["metric"] == "rasterize_fwd_bwd_mrays_per_s_per_chip"
+            and final["value"] > 0
+            and extra["train_step_iters_per_s_per_chip"] > 0
+            and extra["device"]["platform"] == "gpu"
+            and extra["device"]["nvidia_smi"]):
+        raise AssertionError(f"bench output: {lines}")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1163,13 +1308,18 @@ def main():
     phase_train_repro()
     phase_training()
     torch.cuda.empty_cache()
-    launches = phase_training(flash=True)  # this slice's main path
+    launches = phase_training(flash=True)  # the train step's flash path
+    torch.cuda.empty_cache()
+    loop_launches = phase_loop()  # the training entry point
+    torch.cuda.empty_cache()  # the bench's own process needs ~40 GB
+    phase_bench()
     flash_src = "jax/experimental/pallas/ops/tpu/flash_attention.py"
     emit({"kernels": [{
         "name": "composite_fwd", "route": "cuda",
         "source": "splatformer_tpu_torch/csrc/composite_fwd.cu",
         "replaces": "splatformer_tpu/ops/pallas/raster.py:272",
         "launches": launches["composite_fwd"],
+        "loop_launches": loop_launches["composite_fwd"],
         "max_abs_err": max(k1["max_abs_err_rgb"], k1["max_abs_err_T"]),
         "ms": k1["ms"], "plain_ms": k1["plain_ms"],
         "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
@@ -1178,6 +1328,7 @@ def main():
         "source": "splatformer_tpu_torch/csrc/composite_bwd.cu",
         "replaces": "splatformer_tpu/ops/pallas/raster.py:367",
         "launches": launches["composite_bwd"],
+        "loop_launches": loop_launches["composite_bwd"],
         "max_abs_err": k2["max_abs_err"],
         "ms": k2["ms"], "plain_ms": k2["plain_ms"],
         "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],

@@ -1,9 +1,10 @@
 """PyTorch + CUDA port of splatformer_tpu for NVIDIA Hopper (H100).
 
 The JAX package ``splatformer_tpu`` is the reference; this package mirrors its
-layout (ops/, models/, training/, data/, configs/) and replaces each Pallas
-kernel with a hand-written CUDA kernel (kernels/ wrappers, csrc/ sources).
-It imports torch and numpy only.
+layout (ops/, models/, training/, data/, configs/, utils/) and replaces each
+Pallas kernel with a hand-written CUDA kernel (kernels/ wrappers, csrc/
+sources). Entry points: ``python -m splatformer_tpu_torch.train`` and
+``python -m splatformer_tpu_torch.bench``. It imports torch and numpy only.
 
 Float32 matmuls and convolutions run in full float32 here, deliberately: by
 default cuDNN convolutions on Ampere/Hopper use TF32 (about three decimal

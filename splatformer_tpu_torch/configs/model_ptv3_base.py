@@ -59,6 +59,9 @@ class ModelConfig:
     output_head_type: str = "mlp-relu"
     max_scale_normalized: float = 1e-2
     grid_resolution: int = 384
+    # a checkpoint directory whose backbone the loop loads shape-tolerantly
+    # when the run has no checkpoint of its own ("" = none)
+    resume_ckpt: str = ""
     output_features_type: str = "res"
     input_features: Tuple[str, ...] = ("means", "scales", "opacities", "quats",
                                        "features_dc", "features_rest")

@@ -22,6 +22,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from splatformer_tpu_torch.data.convert import lpips_state_dict_from_npz
+from splatformer_tpu_torch.device import resolve_device
 
 # VGG16: (out_channels, convs) per stage; features tapped after each stage
 VGG_STAGES = ((64, 2), (128, 2), (256, 3), (512, 3), (512, 3))
@@ -108,3 +109,49 @@ def load_lpips_params(path: Optional[str]
         raise ValueError(f"LPIPS weights file {path} violates the layout "
                          "contract: " + "; ".join(bad))
     return lpips_state_dict_from_npz(data)
+
+
+def make_lpips_fn(weights_path: Optional[str] = None, device: str = "cuda"
+                  ) -> Optional[LPIPS]:
+    """An eval-mode LPIPS on ``device`` with the weights at
+    ``weights_path``, frozen, called as (img1, img2) -> (N,); None when no
+    weights file exists there (the caller then skips LPIPS)."""
+    sd = load_lpips_params(weights_path) if weights_path else None
+    if sd is None:
+        return None
+    model = LPIPS()
+    model.load_state_dict(sd)
+    return model.requires_grad_(False).eval().to(resolve_device(device))
+
+
+def write_synthetic_weights(path: str, seed: int = 42) -> None:
+    """Write seeded random-feature LPIPS weights in the JAX package's npz
+    layout (port of scripts/make_synthetic_lpips_weights.py ``generate``,
+    the same numpy stream): He-normal VGG kernels, zero biases, and lin
+    heads of 1/C scaled so that a canonical pair, a uniform 64^2 image and
+    its copy with 0.1-sigma noise (clipped; ``default_rng(0)``), lies 0.2
+    apart, the scale of the real metric. Not the published LPIPS: numbers
+    from these weights compare only with runs on the same weights."""
+    rng = np.random.default_rng(seed)
+    arrays = {}
+    for key, shape in expected_weight_shapes().items():
+        if key.endswith("/kernel"):
+            fan_in = 9 * shape[2]
+            arrays[key] = rng.normal(0.0, np.sqrt(2.0 / fan_in),
+                                     shape).astype(np.float32)
+        elif key.endswith("/bias"):
+            arrays[key] = np.zeros(shape, np.float32)
+        else:
+            arrays[key] = np.full(shape, 1.0 / shape[0], np.float32)
+    model = LPIPS()
+    model.load_state_dict(lpips_state_dict_from_npz(arrays))
+    r = np.random.default_rng(0)
+    img = torch.as_tensor(r.uniform(size=(1, 64, 64, 3)), dtype=torch.float32)
+    noise = torch.as_tensor(r.normal(size=(1, 64, 64, 3)), dtype=torch.float32)
+    with torch.no_grad():
+        d = float(model(img, torch.clamp(img + 0.1 * noise, 0, 1))[0])
+    gain = 0.2 / max(d, 1e-9)
+    for si in range(len(VGG_STAGES)):
+        arrays[f"lin{si}"] *= gain
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    np.savez(path, **arrays)

@@ -1,7 +1,8 @@
-"""Image quality metrics (port of psnr/ssim of
-splatformer_tpu/training/metrics.py): PSNR over per-image MSE; SSIM with an
-11x11 sigma-1.5 Gaussian window, zero 'same' padding, C1 = 0.01^2,
-C2 = 0.03^2, averaged per image. Images are (N, H, W, C) in [0, 1].
+"""Image quality metrics (port of splatformer_tpu/training/metrics.py):
+PSNR over per-image MSE; SSIM with an 11x11 sigma-1.5 Gaussian window, zero
+'same' padding, C1 = 0.01^2, C2 = 0.03^2, averaged per image; and
+MetricComputer, which accumulates them (and LPIPS, given a model) per
+image and per scene. Images are (N, H, W, C) in [0, 1].
 
 The window conv runs in full float32: the package turns cuDNN's TF32 off
 at import (see splatformer_tpu_torch/__init__.py), because the
@@ -9,8 +10,11 @@ conv(x^2) - mu^2 variance cancels catastrophically in reduced precision.
 """
 from __future__ import annotations
 
+import json
 import math
+from typing import Callable, Dict, List, Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -49,3 +53,48 @@ def ssim(img1: torch.Tensor, img2: torch.Tensor, window_size: int = 11
     ssim_map = (((2 * mu1_mu2 + c1) * (2 * s12 + c2))
                 / ((mu1_sq + mu2_sq + c1) * (s1 + s2 + c2)))
     return torch.mean(ssim_map, dim=(1, 2, 3))
+
+
+class MetricComputer:
+    """Accumulates per-image metrics with per-scene result dicts (reference
+    utils/metrics.py MetricComputer). ``lpips_fn`` is an (img1, img2) ->
+    (N,) callable such as models/lpips.py:make_lpips_fn's model."""
+
+    def __init__(self, lpips_fn: Optional[Callable] = None):
+        self.metrics: Dict[str, Callable] = {"psnr": psnr, "ssim": ssim}
+        if lpips_fn is not None:
+            self.metrics["lpips"] = lpips_fn
+        self.results: Dict[str, List[np.ndarray]] = {
+            k: [] for k in self.metrics}
+        self.results_dict: Dict[str, Dict[str, list]] = {}
+
+    @torch.no_grad()
+    def update(self, pred: torch.Tensor, gt: torch.Tensor, name: str):
+        if name not in self.results_dict:
+            self.results_dict[name] = {}
+        pred = pred.to(torch.float32)
+        gt = gt.to(torch.float32)
+        if float(pred.max()) > 1.0:
+            pred = pred / 255.0
+        if float(gt.max()) > 1.0:
+            gt = gt / 255.0
+        for metric, fn in self.metrics.items():
+            vals = fn(pred, gt).detach().cpu().numpy().reshape(-1)
+            self.results[metric].append(vals)
+            self.results_dict[name][metric] = [float(v) for v in vals]
+
+    def update_value(self, key: str, value: float, name: str):
+        self.results.setdefault(key, []).append(np.asarray([value]))
+        self.results_dict.setdefault(name, {})[key] = float(value)
+
+    def sum(self) -> Dict[str, float]:
+        return {m: float(np.concatenate(v).sum()) if v else 0.0
+                for m, v in self.results.items()}
+
+    def finalize(self) -> Dict[str, float]:
+        return {m: float(np.concatenate(v).mean()) if v else float("nan")
+                for m, v in self.results.items()}
+
+    def write_to_file(self, path: str):
+        with open(path, "w") as f:
+            json.dump(self.results_dict, f, indent=4)

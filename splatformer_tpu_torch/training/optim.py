@@ -107,6 +107,28 @@ class ChainOptimizer:
         self.mini_step = 0
         self.count = 0
 
+    def state_dict(self) -> Dict[str, object]:
+        """The optimizer's state (moments, accumulator, counters), keyed by
+        parameter name; the tensors are the live ones, not copies."""
+        return {"names": list(self.names), "mu": self.mu, "nu": self.nu,
+                "acc": self.acc, "mini_step": self.mini_step,
+                "count": self.count}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: Dict[str, object]) -> None:
+        """Copy a ``state_dict()`` into this optimizer's tensors (on their
+        devices); the parameter names must match."""
+        if list(state["names"]) != self.names:
+            raise ValueError("optimizer state is for other parameters")
+        for mine, theirs in ((self.mu, state["mu"]), (self.nu, state["nu"]),
+                             (self.acc or [], state["acc"] or [])):
+            if len(mine) != len(theirs):
+                raise ValueError("optimizer state has another accumulation")
+            for dst, src in zip(mine, theirs):
+                dst.copy_(src)
+        self.mini_step = int(state["mini_step"])
+        self.count = int(state["count"])
+
     def zero_grad(self) -> None:
         for p in self.params:
             p.grad = None
