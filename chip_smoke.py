@@ -89,6 +89,36 @@ Phases, each printing one JSON line:
             calls render (steps, eval renders of the refined and the input
             scenes, ground truth, train images) and K2 once a step; the
             kernels line's ``loop_launches``;
+  fit_reference  the per-scene fit (training/fit_gs.py) at
+            tests/test_fit_gs.py's size (capacity 1,024, 5 views at 48^2,
+            60 steps, one densify), card against CPU: one step's loss
+            (1e-5 relative) and gradients (K2's 1e-4 of each attribute's
+            largest magnitude) from one state, densify's slot order on
+            scores with ties and its mask on forged statistics (identical),
+            and whole fits at seeds 0-2 by their PSNR (FIT_PSNR_DB), last
+            loss (FIT_LAST_LOSS_RTOL) and live count (equal), beside three
+            faults planted by a setting, each of which must fail that
+            agreement; K1 and K2 launched as counted;
+  fit_kernels  K1 and K2 against their plain versions (K1's and K2's limits
+            above) at the shapes the factory's fit gives them: one 256^2
+            input view, the factory's tiers and max_intersects, of the
+            98,304-Gaussian ground truth and of the scene fitted from it at
+            the factory's settings (65,536 slots, 300 steps); nothing
+            dropped; the kernels' times at those shapes;
+  factory   ``python -m splatformer_tpu_torch.make_ood_benchmark`` in its
+            own process at the widths of scripts/run_oodbench_scale.sh (256^2,
+            98,304 ground-truth Gaussians, 65,536 slots from 49,152 seed
+            points, max_intersects 524,288, tiers 8,32768,24,4096) for 2
+            train and 1 test scene of 300 fit steps, then again (it must
+            skip all three); run_training on its folder (--dataset
+            oodbench_scale, PTv3-base, bf16, LPIPS) for 10 steps with an
+            eval at 5; ``--only_eval --compare_with_input`` through the CLI
+            in its own process: the layout, finite fit losses, each fit's
+            input-view PSNR above its OOD views', num_dropped 0, the eval.csv
+            rows, K1 and K2 launched as counted (the generator prints its
+            own counts: per scene 2 ground-truth renders + the fit steps +
+            2 eval_fit renders for K1, the fit steps for K2); the kernels
+            line's ``fit_launches``;
   bench     ``python -m splatformer_tpu_torch.bench`` in its own process
             (100k Gaussians, 4 views at 256^2: rasterizer forward +
             backward, then a PTv3-base bf16 train step): its final JSON
@@ -1260,6 +1290,420 @@ def phase_loop():
     return launches
 
 
+# the per-scene fit at tests/test_fit_gs.py's size: one densify (after
+# step 40), card against CPU
+FIT_REF = dict(steps=60, capacity=1024, warmup_steps=20, densify_every=20,
+               densify_stop=40, reset_opacity_every=0, sh_degree=1,
+               sh_degree_interval=20, densify_budget_frac=0.05,
+               lr_means=2e-3, lr_means_final=2e-4)
+FIT_LOSS_RTOL = 1e-5
+# whole fits, card against CPU, one a seed (init, view draws and offset
+# directions); they part after a few steps (Adam's eps of 1e-15 turns
+# rounding noise into +-lr steps), and must still agree this well in PSNR
+# and in the last step's loss, with the same live count. Read on an H100
+# at seeds 0-2: PSNR at most 3.2e-5 dB and the loss 4.0e-6 relative apart;
+# the faults below 0.48 dB (no densify), 2.2 dB (flat means lr) and
+# 2.8e-4 dB with the loss 1.5e-4 relative apart (Adam eps 1e-8)
+FIT_SEEDS = (0, 1, 2)
+FIT_PSNR_DB = 1e-3
+FIT_LAST_LOSS_RTOL = 3e-5
+# faults planted by a setting (a card fit of seed 0 read against the sound
+# CPU fit): each must fall outside the agreement above
+FIT_FAULTS = {"no_densify": dict(densify_every=10 ** 6),
+              "means_lr_flat": dict(lr_means_final=FIT_REF["lr_means"]),
+              "adam_eps_1e-8": dict(adam_eps=1e-8)}
+
+
+def phase_fit_reference():
+    """The per-scene fit, card against CPU: one step's loss and gradients
+    from one state, densify's slot order on scores with ties, and whole
+    60-step fits from fit_gaussians' init at FIT_SEEDS (shared view draws
+    and offset directions) by their PSNR, last loss and live count, beside
+    the planted FIT_FAULTS. Returns the card's launch counts."""
+    import dataclasses
+
+    from splatformer_tpu_torch.data.synthetic import orbit_cameras, random_scene
+    from splatformer_tpu_torch.kernels import LAUNCHES, reset_launches
+    from splatformer_tpu_torch.ops.render import render_images
+    from splatformer_tpu_torch.ops.types import RasterizeConfig
+    from splatformer_tpu_torch.training import fit_gs
+
+    rcfg = RasterizeConfig(max_intersects=2 ** 13, tiles_per_gauss=16)
+    cfg = fit_gs.FitConfig(**FIT_REF)
+    gt = random_scene(np.random.default_rng(11), 384, device="cpu")
+    gt = gt.replace(scales=torch.clamp(gt.scales + 1.5, -5.0, -2.5),
+                    opacities=gt.opacities + 2.0)
+    cams = {"cpu": orbit_cameras(5, 48, 48, device="cpu"),
+            "cuda": orbit_cameras(5, 48, 48, device="cuda")}
+    with torch.no_grad():
+        target = torch.clamp(render_images(gt, cams["cpu"], torch.zeros(3),
+                                           rcfg)[0], 0.0, 1.0)
+    images = {"cpu": target, "cuda": target.cuda()}
+    view = int(np.random.default_rng(0).integers(5))  # fit_gaussians' first
+    band = torch.ones(3)
+    # one state for both devices: init_state's, its live quats, scales and
+    # SH spread (the identity quats and isotropic scales of the init get
+    # no rotation gradient, and SH none before its band unlocks)
+    base = fit_gs.init_state(cfg, n_init=256, seed=0, device="cpu")
+    live = base.mask.numpy()
+    rng = np.random.default_rng(9)
+    host = {k: p.detach().numpy().copy() for k, p in base.params.items()}
+    host["quats"][live] = rng.normal(size=(live.sum(), 4))
+    host["scales"][live] += rng.normal(0, 0.4, (live.sum(), 3))
+    host["features_rest"][live] = rng.normal(0, 0.2, (live.sum(), 3, 3))
+
+    def fit(dev, fit_cfg, seed):
+        t0 = time.perf_counter()
+        scene, m = fit_gs.fit_gaussians(images[dev], cams[dev], fit_cfg,
+                                        rcfg, seed=seed)
+        ev = fit_gs.eval_fit(scene, images[dev], cams[dev], rcfg)
+        return {"psnr": ev["psnr"], "fit_loss": m["loss"],
+                "n_gauss": m["n_gauss"],
+                "seconds": time.perf_counter() - t0}
+
+    def agreement(got, ref):
+        return {"psnr_gap_db": abs(got["psnr"] - ref["psnr"]),
+                "fit_loss_rel_gap": abs(got["fit_loss"] - ref["fit_loss"])
+                / abs(ref["fit_loss"]),
+                "n_gauss": [ref["n_gauss"], got["n_gauss"]]}
+
+    def agrees(a):
+        return (a["psnr_gap_db"] <= FIT_PSNR_DB
+                and a["fit_loss_rel_gap"] <= FIT_LAST_LOSS_RTOL
+                and a["n_gauss"][0] == a["n_gauss"][1])
+
+    out = {}
+    reset_launches()
+    for dev in ("cpu", "cuda"):
+        state = fit_gs.init_state(cfg, n_init=256, seed=0, device=dev)
+        with torch.no_grad():
+            for k, v in host.items():
+                state.params[k].copy_(torch.from_numpy(v))
+        loss, _, _ = fit_gs.fit_loss(cfg, rcfg, state.params, state.mask,
+                                     cams[dev].select(view),
+                                     images[dev][view],
+                                     torch.zeros(3, device=dev),
+                                     band.to(dev))
+        grads = torch.autograd.grad(loss, [state.params[k]
+                                           for k in fit_gs.ATTRS])
+        # densify's ranking on scores with ties (lax.top_k's order)
+        score = torch.as_tensor(np.random.default_rng(3).integers(
+            0, 7, cfg.capacity).astype(np.float32)).to(dev)
+        # densify on forged statistics with ties, offsets from the seed
+        acc = np.where(live, np.random.default_rng(4).integers(
+            1, 4, cfg.capacity) * 1e-6, 0.0).astype(np.float32)
+        state.grad_accum = torch.from_numpy(acc).to(dev)
+        state.grad_count = torch.ones(cfg.capacity, device=dev)
+        n_new = fit_gs.densify(cfg, state, torch.Generator().manual_seed(0))
+        out[dev] = {"loss": float(loss.detach()),
+                    "grads": [g.cpu() for g in grads],
+                    "top": fit_gs.top_slots(score, 200)[1].cpu(),
+                    "densify_mask": state.mask.cpu(), "n_new": int(n_new)}
+    fits = []
+    for seed in FIT_SEEDS:
+        ref, got = fit("cpu", cfg, seed), fit("cuda", cfg, seed)
+        fits.append({"seed": seed, "psnr_cpu": ref["psnr"],
+                     "psnr_cuda": got["psnr"], "fit_loss_cpu": ref["fit_loss"],
+                     "fit_loss_cuda": got["fit_loss"],
+                     "seconds_cpu": ref["seconds"],
+                     "seconds_cuda": got["seconds"], **agreement(got, ref)})
+        if seed == FIT_SEEDS[0]:
+            sound = ref
+    faults = {name: agreement(fit("cuda", dataclasses.replace(cfg, **kw), 0),
+                              sound)
+              for name, kw in FIT_FAULTS.items()}
+    launches = dict(LAUNCHES)  # the card's: the CPU takes plain versions
+    cpu, gpu = out["cpu"], out["cuda"]
+    grad_err = {k: float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+                for k, a, b in zip(fit_gs.ATTRS, gpu["grads"], cpu["grads"])}
+    result = {"phase": "fit_reference", "capacity": cfg.capacity,
+              "views": 5, "hw": 48, "steps": cfg.steps,
+              "loss_cpu": cpu["loss"], "loss_cuda": gpu["loss"],
+              "grad_err_rel": grad_err,
+              "slot_order_equal": bool(torch.equal(cpu["top"], gpu["top"])),
+              "densify_mask_equal": bool(torch.equal(cpu["densify_mask"],
+                                                     gpu["densify_mask"])),
+              "densify_added": [cpu["n_new"], gpu["n_new"]],
+              "fits": fits, "faults": faults, "launches": launches}
+    emit(result)
+    if not (abs(gpu["loss"] - cpu["loss"]) <= FIT_LOSS_RTOL * abs(cpu["loss"])
+            and all(e <= K2_TOL for e in grad_err.values())
+            and result["slot_order_equal"] and result["densify_mask_equal"]
+            and cpu["n_new"] == gpu["n_new"] > 0
+            and all(agrees(f) and np.isfinite(f["fit_loss_cuda"])
+                    for f in fits)):
+        raise AssertionError(f"card and CPU fits disagree: {result}")
+    caught = {name: not agrees(a) for name, a in faults.items()}
+    if not all(caught.values()):
+        raise AssertionError(f"planted fit faults pass as sound: {caught}")
+    # the card's loss render, then per fit its steps and one eval_fit render
+    n_fits = len(FIT_SEEDS) + len(FIT_FAULTS)
+    want = {"composite_fwd": 1 + n_fits * (cfg.steps + 1),
+            "composite_bwd": 1 + n_fits * cfg.steps,
+            "attention_fwd": 0, "attention_bwd": 0}
+    if launches != want:
+        raise AssertionError(f"fit_reference launched {launches}, want {want}")
+    return launches
+
+
+def hold_composite(e, hw, seed):
+    """K1 and K2 against their plain versions on one view's entries ``e``
+    (a cotangent drawn from ``seed``): errors, walks and the kernels'
+    times."""
+    from splatformer_tpu_torch.kernels.composite import (composite_bwd,
+                                                         composite_bwd_plain,
+                                                         composite_fwd,
+                                                         composite_fwd_plain)
+    tiles_x = hw // 16
+    args = (e.packed_t, e.tile_start, tiles_x, tiles_x * tiles_x)
+    out_k, walked_k = composite_fwd(*args)
+    out_p, walked_p = composite_fwd_plain(*args)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    g_out = torch.randn(out_k.shape, generator=gen, device="cuda")
+    bargs = args + (out_k, walked_k, g_out)
+    d_k = composite_bwd(*bargs)
+    d_p = composite_bwd_plain(*bargs)
+    replayed = replayed_columns(e.tile_start, walked_k, e.packed_t.shape[1])
+    return {
+        "num_entries": int(e.bins.num_entries),
+        "num_dropped": int(e.bins.num_dropped),
+        "walk_max": int(walked_k.max()),
+        "walk_mean": float(walked_k.float().mean()),
+        "k1_max_abs_err": float((out_k - out_p).abs().max()),
+        "walked_mismatches": int((walked_k != walked_p).sum()),
+        "k2_row_rel_err": [float((d_k[r] - d_p[r]).abs().max())
+                           / max(float(d_p[r].abs().max()), 1e-30)
+                           for r in range(9)],
+        "k2_max_abs_err": float((d_k - d_p).abs().max()),
+        "stray_nonzeros": int((d_k[:, ~replayed] != 0).sum()
+                              + (d_k[9:] != 0).sum()),
+        "k1_ms": cuda_ms(lambda: composite_fwd(*args), 20),
+        "k2_ms": cuda_ms(lambda: composite_bwd(*bargs), 20)}
+
+
+def phase_fit_kernels():
+    """K1 and K2 against their plain versions at the shapes the factory's
+    fit gives them: one 256^2 input view, binned with the factory's tiers
+    and max_intersects, of the ground-truth scene (98,304 Gaussians) and of
+    the scene fitted from it at the factory's settings (65,536 slots, 300
+    steps), whose surfaces make the walks longer."""
+    from splatformer_tpu_torch.data.procgen import make_gt_scene, ring_cameras
+    from splatformer_tpu_torch.make_ood_benchmark import (
+        SH_C0, build_configs, parse_args, sfm_like_seed_points)
+    from splatformer_tpu_torch.ops.render import (prepare_entries,
+                                                  render_images)
+    from splatformer_tpu_torch.training import fit_gs
+
+    args = parse_args(["--out", FACTORY_DIR] + FACTORY_FLAGS)
+    fit_cfg, rcfg = build_configs(args)
+    gt = make_gt_scene(0, n_gauss=args.n_gauss)
+    elevs = [float(x) for x in args.in_elevations.split(",")]
+    cams = ring_cameras(elevs, args.n_az_in, args.hw, args.hw,
+                        az_jitter=0.15, seed=0)
+    with torch.no_grad():
+        images = torch.clamp(render_images(gt, cams, torch.zeros(
+            3, device="cuda"), rcfg)[0], 0.0, 1.0)
+    pts, cols, _ = sfm_like_seed_points(
+        gt.means.cpu().numpy(), gt.features_dc.cpu().numpy() * SH_C0 + 0.5,
+        cams, args.hw, args.seed_points, 0)
+    fitted, m = fit_gs.fit_gaussians(images, cams, fit_cfg, rcfg, seed=0,
+                                     points=pts, colors=cols)
+    result = {"phase": "fit_kernels", "hw": args.hw,
+              "capacity": fit_cfg.capacity, "fit_steps": fit_cfg.steps,
+              "fitted_live": m["n_gauss"]}
+    with torch.no_grad():
+        for name, scene in (("gt", gt), ("fitted", fitted)):
+            result[name] = hold_composite(
+                prepare_entries(scene, cams.select(0), rcfg), args.hw, 5)
+    emit(result)
+    for name in ("gt", "fitted"):
+        r = result[name]
+        if not (r["k1_max_abs_err"] <= K1_TOL and r["walked_mismatches"] == 0
+                and max(r["k2_row_rel_err"]) <= K2_TOL
+                and r["stray_nonzeros"] == 0 and r["num_dropped"] == 0
+                and r["num_entries"] > 0):
+            raise AssertionError(f"K1 or K2 disagrees at the fit's shapes "
+                                 f"({name}): {result}")
+
+
+FACTORY_DIR = "build/chip_smoke_factory"
+# scripts/run_oodbench_scale.sh's generation flags, 2 + 1 scenes of 300
+# fit steps (warm-up 100, densify_stop 200: one densify)
+FACTORY_FLAGS = ["--hw", "256", "--n_gauss", "98304", "--capacity", "65536",
+                 "--fit_steps", "300", "--seed_points", "49152",
+                 "--densify_budget_frac", "0.08", "--fit_warmup", "100",
+                 "--max_intersects", "524288", "--tiers", "8,32768,24,4096",
+                 "--n_train_scenes", "2", "--n_test_scenes", "1",
+                 "--log_every", "100"]
+FACTORY_STEPS, FACTORY_EVAL = 10, 5
+PHASE_RE = re.compile(r"^\s+\[(\w+): ([0-9.]+)s\]$")
+
+
+def run_module(module, args, cwd=None, timeout=600):
+    """``python -m module args`` in its own process, from ``cwd`` with this
+    checkout on the path; returns its standard output."""
+    env = dict(os.environ, PYTHONPATH=os.path.abspath("."))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", module] + args, cwd=cwd,
+                          env=env, capture_output=True, text=True,
+                          timeout=timeout)
+    if proc.returncode != 0:
+        raise AssertionError(f"{module} exited {proc.returncode}: "
+                             f"{proc.stderr[-3000:]}")
+    return proc.stdout, time.perf_counter() - t0
+
+
+def phase_factory():
+    """The data factory at the scale tier's widths in its own process, a
+    second call that skips the done scenes, run_training on its folder,
+    then --only_eval --compare_with_input through the CLI in its own
+    process. Returns the factory's launch counts."""
+    import shutil
+
+    from splatformer_tpu_torch.configs import build_full_config
+    from splatformer_tpu_torch.kernels import LAUNCHES, reset_launches
+    from splatformer_tpu_torch.models.lpips import write_synthetic_weights
+    from splatformer_tpu_torch.training.loop import run_training
+
+    shutil.rmtree(FACTORY_DIR, ignore_errors=True)
+    data = os.path.abspath(f"{FACTORY_DIR}/data")
+    stdout, seconds = run_module("splatformer_tpu_torch.make_ood_benchmark",
+                                 ["--out", data] + FACTORY_FLAGS)
+    scenes, cur, fit_losses = [], None, []
+    launches = peak_gib = None
+    for line in stdout.splitlines():
+        m = PHASE_RE.match(line)
+        if m:
+            if cur is None:
+                cur = {"phases_s": {}}
+            cur["phases_s"][m.group(1)] = float(m.group(2))
+        elif line.startswith("{"):
+            cur.update(json.loads(line))
+            scenes.append(cur)
+            cur = None
+        elif line.startswith("fit step "):
+            fit_losses.append(float(re.search(r"'loss': ([^,}]+)",
+                                              line).group(1)))
+        elif line.startswith("kernel launches: "):
+            launches = json.loads(line[len("kernel launches: "):])
+        elif line.startswith("peak device memory: "):
+            peak_gib = float(line.split()[3])
+    steps = int(FACTORY_FLAGS[FACTORY_FLAGS.index("--fit_steps") + 1])
+    for s in scenes:
+        s["fit_ms_per_step"] = 1e3 * s["phases_s"]["fit"] / steps
+    again, _ = run_module("splatformer_tpu_torch.make_ood_benchmark",
+                          ["--out", data] + FACTORY_FLAGS)
+    layout = sorted(
+        os.path.relpath(os.path.join(d, f), data)
+        for d, _, files in os.walk(data) for f in files
+        if not f.endswith(".png"))
+    n_images = {s: len(os.listdir(f"{data}/{s}/colmap/{n}/images"))
+                for s, n in (("train", "scene00000"), ("train", "scene00001"),
+                             ("test", "scene10000"))}
+
+    # the loop on the factory's folder: PTv3-base, bf16, LPIPS
+    lpips_path = f"{FACTORY_DIR}/lpips_vgg.npz"
+    write_synthetic_weights(lpips_path)
+    folders = {"oodbench_scale": (f"{data}/test/nerfstudio",
+                                  f"{data}/test/colmap")}
+    overrides = [
+        f"dataset.train.nerfstudio_folder='{data}/train/nerfstudio'",
+        f"dataset.train.colmap_folder='{data}/train/colmap'",
+        f"dataset.test.folders={folders!r}",
+        "train.log_interval=1", f"train.eval_interval={FACTORY_EVAL}",
+        f"train.lpips_weights_path='{os.path.abspath(lpips_path)}'"]
+    cfg = build_full_config(dataset="oodbench_scale", overrides=overrides)
+    run = os.path.abspath(f"{FACTORY_DIR}/run")
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, _, _, rcfg, lpips_fn = run_training(cfg, run,
+                                               max_steps=FACTORY_STEPS)
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    loop_launches = dict(LAUNCHES)
+    loop_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    with open(f"{run}/history.json") as f:
+        history = json.load(f)
+    with open(f"{run}/eval.csv") as f:
+        run_rows = [line.strip().split(",") for line in f]
+    args = ["--dataset", "oodbench_scale", "--output_dir", run,
+            "--only_eval", "--compare_with_input"]
+    for o in overrides:
+        args += ["--override", o]
+    _, eval_s = run_module("splatformer_tpu_torch.train", args,
+                           cwd=FACTORY_DIR)
+    with open(f"{FACTORY_DIR}/eval.csv") as f:
+        cli_rows = [line.strip().split(",") for line in f]
+
+    evals = [s for s in range(FACTORY_STEPS)
+             if s > 0 and s % FACTORY_EVAL == 0]
+    images = [s for s in range(FACTORY_STEPS)
+              if s % cfg.train.log_image_interval == 0]
+    n_test = len(os.listdir(f"{data}/test/nerfstudio"))
+    want_fit = {"composite_fwd": (2 + steps + 2) * len(scenes),
+                "composite_bwd": steps * len(scenes),
+                "attention_fwd": 0, "attention_bwd": 0}
+    # a step's render, the refined and the input render of every test
+    # scene at each eval, and the train images (the loaders render no GT)
+    want_loop = {"composite_fwd": FACTORY_STEPS + 2 * n_test * len(evals)
+                 + len(images), "composite_bwd": FACTORY_STEPS,
+                 "attention_fwd": 0, "attention_bwd": 0}
+    result = {
+        "phase": "factory", "seconds": seconds, "scenes": scenes,
+        "peak_mem_gib": peak_gib, "launches": launches,
+        "fit_losses": fit_losses, "skip_lines": again.count("[skip]"),
+        "layout": layout, "images": n_images,
+        "loop": {"seconds": loop_s, "end_step": state.step,
+                 "peak_mem_gib": loop_peak, "launches": loop_launches,
+                 "raster": {"tiers": list(rcfg.tiers),
+                            "tiles_per_gauss": rcfg.tiles_per_gauss,
+                            "max_intersects": rcfg.max_intersects},
+                 "lpips_on": lpips_fn is not None,
+                 **{k: [h[k] for h in history]
+                    for k in ("total_loss", "lpips", "num_dropped",
+                              "steps_per_s")}},
+        "run_eval_csv": run_rows, "only_eval_seconds": eval_s,
+        "only_eval_csv": cli_rows}
+    emit(result)
+    names = [("train", "scene00000"), ("train", "scene00001"),
+             ("test", "scene10000")]
+    want_layout = sorted(
+        [f"{s}/nerfstudio/{n}/splatfacto/nerfstudio_models/"
+         "step-000001999.ckpt" for s, n in names]
+        + [f"{s}/colmap/{n}/sparse/0/{f}.bin" for s, n in names
+           for f in ("cameras", "images", "points3D")]
+        + ["generation_summary.jsonl"])
+    if layout != want_layout or set(n_images.values()) != {14 + 9}:
+        raise AssertionError(f"factory layout: {layout} {n_images}")
+    if result["skip_lines"] != 3 or "wrote 0 scenes" not in again:
+        raise AssertionError(f"second factory call: {again}")
+    if not (len(scenes) == 3 and len(fit_losses) == 9
+            and all(np.isfinite(fit_losses))):
+        raise AssertionError(f"factory fits: {scenes} {fit_losses}")
+    for s in scenes:
+        if not s["fit_psnr_input_views"] > s["fit_psnr_ood_views"]:
+            raise AssertionError(f"fit PSNR on the input views not above "
+                                 f"the OOD views': {s}")
+    if launches != want_fit:
+        raise AssertionError(f"factory launched {launches}, want {want_fit}")
+    if loop_launches != want_loop:
+        raise AssertionError(f"factory loop launched {loop_launches}, want "
+                             f"{want_loop}")
+    for h in history:
+        if not (np.isfinite(h["total_loss"]) and h["num_dropped"] == 0):
+            raise AssertionError(f"bad factory loop step: {h}")
+    if not (state.step == FACTORY_STEPS and lpips_fn is not None
+            and [r[:2] for r in run_rows[1:]] == [["oodbench_scale",
+                                                   str(FACTORY_EVAL)]]
+            and all(np.isfinite(float(x)) for x in run_rows[1][2:])):
+        raise AssertionError(f"factory loop: {state.step} {run_rows}")
+    if not (len(cli_rows) == 2 and cli_rows[1][0] == "oodbench_scale"
+            and all(np.isfinite(float(x)) for x in cli_rows[1][1:4])):
+        raise AssertionError(f"only_eval eval.csv: {cli_rows}")
+    return launches
+
+
 def phase_bench():
     """The port bench in its own process, as a user runs it."""
     t0 = time.perf_counter()
@@ -1311,6 +1755,10 @@ def main():
     launches = phase_training(flash=True)  # the train step's flash path
     torch.cuda.empty_cache()
     loop_launches = phase_loop()  # the training entry point
+    torch.cuda.empty_cache()  # the factory's own process
+    phase_fit_reference()
+    phase_fit_kernels()
+    fit_launches = phase_factory()  # the data factory and its loaders
     torch.cuda.empty_cache()  # the bench's own process needs ~40 GB
     phase_bench()
     flash_src = "jax/experimental/pallas/ops/tpu/flash_attention.py"
@@ -1320,6 +1768,7 @@ def main():
         "replaces": "splatformer_tpu/ops/pallas/raster.py:272",
         "launches": launches["composite_fwd"],
         "loop_launches": loop_launches["composite_fwd"],
+        "fit_launches": fit_launches["composite_fwd"],
         "max_abs_err": max(k1["max_abs_err_rgb"], k1["max_abs_err_T"]),
         "ms": k1["ms"], "plain_ms": k1["plain_ms"],
         "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
@@ -1329,6 +1778,7 @@ def main():
         "replaces": "splatformer_tpu/ops/pallas/raster.py:367",
         "launches": launches["composite_bwd"],
         "loop_launches": loop_launches["composite_bwd"],
+        "fit_launches": fit_launches["composite_bwd"],
         "max_abs_err": k2["max_abs_err"],
         "ms": k2["ms"], "plain_ms": k2["plain_ms"],
         "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],

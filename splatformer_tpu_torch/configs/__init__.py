@@ -3,11 +3,13 @@ of python configs (model / dataset / train), each a module
 ``{kind}_{name}.py`` whose ``get_config()`` returns a dataclass, with
 ``a.b.c=value`` CLI overrides.
 
-The port has the configs it runs: ``model ptv3_base``, ``dataset
-synthetic`` and ``train default``. Loading any other name raises
-NotImplementedError (the JAX package's other configs are queued in
-ROADMAP.md). An override of a field that does not exist raises; keys of a
-dict field (``train.optimizer.lr_dict.means=1e-4``) may be added.
+The port has the configs it runs: ``model ptv3_base``, the datasets
+``synthetic``, ``oodbench``, ``oodbench_scale``, ``oodbench_512``,
+``objaverse`` and ``shapenet``, and ``train default``. Loading any other
+name raises NotImplementedError (the JAX package's other model configs are
+queued in ROADMAP.md). An override of a field that does not exist raises;
+keys of a dict field (``train.optimizer.lr_dict.means=1e-4``,
+``dataset.test.folders``) may be added.
 """
 from __future__ import annotations
 
@@ -16,17 +18,18 @@ import dataclasses
 import importlib
 import json
 from dataclasses import dataclass
-from typing import Any, Optional, Sequence
+from typing import Any, Optional, Sequence, Union
 
 from splatformer_tpu_torch.configs.dataset_synthetic import DatasetConfig
 from splatformer_tpu_torch.configs.model_ptv3_base import ModelConfig
+from splatformer_tpu_torch.configs.scene_dataset import SceneDatasetConfig
 from splatformer_tpu_torch.configs.train_default import TrainConfig
 
 
 @dataclass
 class FullConfig:
     model: ModelConfig
-    dataset: DatasetConfig
+    dataset: Union[DatasetConfig, SceneDatasetConfig]
     train: TrainConfig
 
     def to_json(self, indent: int = 2) -> str:

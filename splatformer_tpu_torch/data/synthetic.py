@@ -79,3 +79,11 @@ def orbit_cameras(n_views: int, height: int, width: int,
         c2w=c2w.to(device), fx=(ones * focal).to(device),
         fy=(ones * focal).to(device), cx=(ones * (width / 2.0)).to(device),
         cy=(ones * (height / 2.0)).to(device), width=width, height=height)
+
+
+def single_camera(cameras: Camera, i: int) -> Camera:
+    """View ``i`` of a batched Camera, with scalar intrinsics."""
+    return Camera(
+        c2w=cameras.c2w[i], fx=cameras.fx[i], fy=cameras.fy[i],
+        cx=cameras.cx[i], cy=cameras.cy[i],
+        width=cameras.width, height=cameras.height)

@@ -1,5 +1,6 @@
 """Camera math (port of splatformer_tpu/ops/camera.py): OpenGL c2w -> OpenCV
-w2c view matrices, wxyz quaternion utilities."""
+w2c view matrices, wxyz quaternion utilities and their inverse,
+rotmat_to_quat."""
 from __future__ import annotations
 
 import torch
@@ -47,3 +48,22 @@ def quat_to_rotmat(quats: torch.Tensor) -> torch.Tensor:
     row1 = torch.stack([r10, r11, r12], dim=-1)
     row2 = torch.stack([r20, r21, r22], dim=-1)
     return torch.stack([row0, row1, row2], dim=-2)
+
+
+def rotmat_to_quat(R: torch.Tensor) -> torch.Tensor:
+    """Rotation matrices (..., 3, 3) -> wxyz quaternions (..., 4).
+
+    Branch-free Shepperd-style construction (valid for proper rotations)."""
+    m00, m01, m02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
+    m10, m11, m12 = R[..., 1, 0], R[..., 1, 1], R[..., 1, 2]
+    m20, m21, m22 = R[..., 2, 0], R[..., 2, 1], R[..., 2, 2]
+    tr = m00 + m11 + m22
+
+    def half_sqrt(x):
+        return 0.5 * torch.sqrt(torch.clamp(x, min=1e-12))
+    qw = half_sqrt(1.0 + tr)
+    qx = torch.copysign(half_sqrt(1.0 + m00 - m11 - m22), m21 - m12)
+    qy = torch.copysign(half_sqrt(1.0 - m00 + m11 - m22), m02 - m20)
+    qz = torch.copysign(half_sqrt(1.0 - m00 - m11 + m22), m10 - m01)
+    q = torch.stack([qw, qx, qy, qz], dim=-1)
+    return q / torch.linalg.vector_norm(q, dim=-1, keepdim=True)

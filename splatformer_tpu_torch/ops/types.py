@@ -31,6 +31,12 @@ class Camera:
     def replace(self, **kw) -> "Camera":
         return dataclasses.replace(self, **kw)
 
+    def select(self, i: int) -> "Camera":
+        """View ``i`` as a batch of one."""
+        return self.replace(c2w=self.c2w[i:i + 1], fx=self.fx[i:i + 1],
+                            fy=self.fy[i:i + 1], cx=self.cx[i:i + 1],
+                            cy=self.cy[i:i + 1])
+
 
 @dataclass
 class GaussianScene:

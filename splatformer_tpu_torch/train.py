@@ -3,6 +3,10 @@
     # train on synthetic scenes on the card
     python -m splatformer_tpu_torch.train --output_dir output/smoke --max_steps 20
 
+    # train on the data factory's scale tier (make_ood_benchmark)
+    python -m splatformer_tpu_torch.train --dataset oodbench_scale \\
+        --output_dir output/scale
+
     # the same on the CPU at a tiny size (kernels' plain versions)
     python -m splatformer_tpu_torch.train --cpu --output_dir output/tiny \\
         --max_steps 2 --override dataset.n_gaussians=1024 ...
@@ -14,8 +18,8 @@
 
 Runs on the card unless ``--cpu`` is given; without ``--cpu`` and without a
 card it exits with status 1. Not ported yet, refused by name (ROADMAP.md
-queue 1): datasets other than ``synthetic``, ``--save_viewer``, and a
-``--merge_rate`` other than the model config's (token merging).
+queue 1): ``--save_viewer``, and a ``--merge_rate`` other than the model
+config's (token merging).
 """
 from __future__ import annotations
 
@@ -63,10 +67,13 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     from splatformer_tpu_torch.models.feature_predictor import (
         build_feature_predictor)
     from splatformer_tpu_torch.models.lpips import make_lpips_fn
+    from splatformer_tpu_torch.ops.calibrate import (calibrate_raster_config,
+                                                     calibration_summary)
     from splatformer_tpu_torch.ops.types import RasterizeConfig
     from splatformer_tpu_torch.training import checkpoints as ckpt_lib
     from splatformer_tpu_torch.training.loop import (build_train_state,
                                                      evaluation,
+                                                     make_splatfacto_data,
                                                      make_synthetic_data,
                                                      run_training)
     from splatformer_tpu_torch.utils.logging import get_logger, log_result_csv
@@ -94,13 +101,19 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         return 0
 
     # eval-only path
-    if not cfg.dataset.synthetic:
-        raise NotImplementedError("the scene loaders are not ported yet "
-                                  "(ROADMAP.md queue 1 item 3)")
     rcfg = RasterizeConfig()
     model = build_feature_predictor(cfg.model, device=device,
                                     seed=cfg.train.seed)
-    _, test_factories = make_synthetic_data(cfg.dataset, rcfg, device)
+    if getattr(cfg.dataset, "synthetic", False):
+        _, test_factories = make_synthetic_data(cfg.dataset, rcfg, device)
+    else:
+        _, test_factories = make_splatfacto_data(cfg.dataset, device)
+        if cfg.train.auto_raster_budget:
+            first = next(iter(test_factories.values()))()
+            rcfg = calibrate_raster_config(
+                [(sb.scene, sb.cameras) for _, sb in first], rcfg)
+            logger.info("calibrated raster budgets: %s",
+                        calibration_summary(rcfg))
     state = build_train_state(cfg, model, device)
     # prefer the best-by-held-out-PSNR checkpoint (training saves one at
     # every improving eval); --ckpt last opts out

@@ -5,12 +5,14 @@ evaluation over every test set with image grids, metric JSONs and eval.csv
 rows; best-by-held-out-PSNR and periodic checkpoints; history.json and
 config.json.
 
-One process on one device. The JAX package's cross-process metric
-reduction is the plain per-image mean here, and file names keep its
-``rank0``. There is no TensorBoard: history.json and train.log carry the
-scalars. Not ported yet, each refused by name (ROADMAP.md queue 1): the
-scene loaders (non-synthetic datasets) and host prefetch workers
-(``num_workers`` > 0); train.py refuses ``--save_viewer``.
+Data comes from the synthetic scenes or from scene folders
+(data/dataset.py:SplatfactoScenes, written by the data factory), with a
+host prefetch thread when ``num_workers`` > 0. One process on one device:
+the loaders shard scenes by torch.distributed's rank and world size when
+it is initialised, but the JAX package's cross-process metric reduction is
+the plain per-image mean here, and file names keep its ``rank0``. There is
+no TensorBoard: history.json and train.log carry the scalars. train.py
+refuses ``--save_viewer`` (ROADMAP.md queue 1 item 5).
 """
 from __future__ import annotations
 
@@ -42,11 +44,6 @@ from splatformer_tpu_torch.utils.logging import (device_peak_memory_mb,
 
 RUN_EVAL_CSV_HEADER = ("dataset,step,psnr,ssim,lpips,input_psnr,"
                        "input_ssim,input_lpips\n")
-
-
-def _unported(what: str, item: int):
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md queue 1 item {item})")
 
 
 # ---------------------------------------------------------------------------
@@ -115,6 +112,70 @@ def make_synthetic_data(ds_cfg, rcfg: RasterizeConfig, device="cuda"):
         return [(f"scene{i}", pairs[i]) for i in range(min(4, len(pairs)))]
 
     return train_iter(), {"synthetic": test_scenes}
+
+
+def process_rank() -> Tuple[int, int]:
+    """(index, count) of this process: torch.distributed's rank and world
+    size when it is initialised, else (0, 1)."""
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
+
+
+def make_splatfacto_data(ds_cfg, device="cuda"):
+    """Scene-folder data (nerfstudio checkpoints and COLMAP folders):
+    (train batch iterator, {name: test scene list factory}), scenes padded
+    to ``pad_to`` (0: ``max_gs_num`` rounded up to a multiple of 1024)."""
+    from splatformer_tpu_torch.data.dataset import (SplatfactoScenes,
+                                                    to_scene_batch)
+
+    # one scene a micro-step (the reference's loader asserts batch %
+    # (ngpus * accum) == 0 and its FeaturePredictor batch 1); a larger
+    # batch is accumulate_step
+    if ds_cfg.batch_size != 1:
+        raise ValueError(f"batch_size {ds_cfg.batch_size}: scenes go one a "
+                         "step; use dataset.accumulate_step")
+    device = resolve_device(device)
+    pad_to = ds_cfg.pad_to or ((ds_cfg.max_gs_num + 1023) // 1024) * 1024
+    index, count = process_rank()
+    train_ds = SplatfactoScenes(
+        "train", ds_cfg.train.nerfstudio_folder, ds_cfg.train.colmap_folder,
+        load_pose_src=ds_cfg.load_pose_src,
+        sample_ratio_test=ds_cfg.train.sample_ratio_test,
+        image_per_scene=ds_cfg.train.image_per_scene,
+        remove_outlier_ndevs=ds_cfg.remove_outlier_ndevs,
+        max_gs_num=ds_cfg.max_gs_num, pad_to=pad_to,
+        background_color=ds_cfg.train.background_color,
+        cache_steps=ds_cfg.train.cache_steps,
+        cache_num_scenes=ds_cfg.train.cache_num_scenes,
+        process_index=index, process_count=count,
+        split_across_processes=ds_cfg.train.split_across_processes,
+        augment=dict(ds_cfg.train.augment) or None)
+
+    def train_iter():
+        it = train_ds.iter_train()
+        while True:
+            yield to_scene_batch(next(it), device)
+
+    def make_test_factory(folders):
+        def factory():
+            ds = SplatfactoScenes(
+                "test", folders[0], folders[1],
+                load_pose_src=ds_cfg.load_pose_src,
+                remove_outlier_ndevs=ds_cfg.remove_outlier_ndevs,
+                max_gs_num=ds_cfg.max_gs_num, pad_to=pad_to,
+                background_color=list(ds_cfg.test.background_color),
+                process_index=index, process_count=count,
+                split_across_processes=ds_cfg.test.split_across_processes)
+            # keyed by scene name, so metric JSONs join with the folders
+            return [(str(sample["scene_name"]), to_scene_batch(sample, device))
+                    for sample in ds.iter_test()]
+        return factory
+
+    test = {name: make_test_factory(folders)
+            for name, folders in ds_cfg.test.folders.items()}
+    return train_iter(), test
 
 
 # ---------------------------------------------------------------------------
@@ -238,23 +299,31 @@ def run_training(cfg, output_dir: str, max_steps: Optional[int] = None,
     device = resolve_device(device)
     os.makedirs(output_dir, exist_ok=True)
     logger = get_logger(os.path.join(output_dir, "train.log"))
-    if not cfg.dataset.synthetic:
-        raise _unported("the scene loaders (make_splatfacto_data)", 3)
-    if cfg.dataset.num_workers > 0:
-        raise _unported("num_workers > 0 (prefetch_iterator)", 3)
     rcfg = RasterizeConfig()
 
     model = build_feature_predictor(
         cfg.model, device=device, seed=cfg.train.seed,
         compute_dtype="bfloat16" if cfg.train.bf16 else None)
-    train_iter, test_factories = make_synthetic_data(cfg.dataset, rcfg,
-                                                     device)
+    if getattr(cfg.dataset, "synthetic", False):
+        train_iter, test_factories = make_synthetic_data(cfg.dataset, rcfg,
+                                                         device)
+    else:
+        train_iter, test_factories = make_splatfacto_data(cfg.dataset,
+                                                          device)
     first = next(train_iter)
     if cfg.train.auto_raster_budget:
+        # two more (augmented) batches, so the measured tile statistics see
+        # the corruption floaters that training renders
         extra = [next(train_iter) for _ in range(2)]
         rcfg = calibrate_from_data(first, test_factories, rcfg, logger,
                                    extra_batches=extra)
     state = build_train_state(cfg, model, device)
+    if cfg.dataset.num_workers > 0:
+        # host prefetch (the reference DataLoader's num_workers): scene
+        # loading and decoding overlap the device step
+        from splatformer_tpu_torch.data.dataset import prefetch_iterator
+        train_iter = prefetch_iterator(train_iter,
+                                       depth=cfg.dataset.num_workers)
 
     ckpt_dir = os.path.join(output_dir, "checkpoints")
     if ckpt_lib.latest_step(ckpt_dir) is not None:

@@ -62,6 +62,26 @@ def build_schedule(base_lr: float, schedule: str, total_steps: int,
     return joined
 
 
+def adam_update(grads: List[torch.Tensor], mu: List[torch.Tensor],
+                nu: List[torch.Tensor], counts: Sequence[int], eps: float):
+    """optax's scale_by_adam on lists of tensors (``torch._foreach_*``):
+    returns the new first and second moments and the bias-corrected
+    updates; ``counts`` are each tensor's update counts after this step,
+    the bias corrections float32 as optax computes them."""
+    bc1 = [float(np.float32(1) - np.float32(B1) ** np.float32(c))
+           for c in counts]
+    bc2 = [float(np.float32(1) - np.float32(B2) ** np.float32(c))
+           for c in counts]
+    mu = torch._foreach_add(torch._foreach_mul(grads, 1 - B1),
+                            torch._foreach_mul(mu, B1))
+    nu = torch._foreach_add(
+        torch._foreach_mul(torch._foreach_mul(grads, grads), 1 - B2),
+        torch._foreach_mul(nu, B2))
+    denom = torch._foreach_add(
+        torch._foreach_sqrt(torch._foreach_div(nu, bc2)), eps)
+    return mu, nu, torch._foreach_div(torch._foreach_div(mu, bc1), denom)
+
+
 def param_label(name: str) -> str:
     """'backbone' or the feature of an output head ``head_<feature>``."""
     top = name.split(".", 1)[0]
@@ -161,18 +181,8 @@ class ChainOptimizer:
                 torch.where(below, one, torch.full_like(norm, self.clip)))
         count = self.count + 1
         if self.adam:
-            # bias corrections in float32, as optax computes them
-            bc1 = float(np.float32(1) - np.float32(B1) ** np.float32(count))
-            bc2 = float(np.float32(1) - np.float32(B2) ** np.float32(count))
-            self.mu = torch._foreach_add(torch._foreach_mul(grads, 1 - B1),
-                                      torch._foreach_mul(self.mu, B1))
-            self.nu = torch._foreach_add(
-                torch._foreach_mul(torch._foreach_mul(grads, grads), 1 - B2),
-                torch._foreach_mul(self.nu, B2))
-            nu_hat = torch._foreach_div(self.nu, bc2)
-            denom = torch._foreach_add(torch._foreach_sqrt(nu_hat), self.eps)
-            updates = torch._foreach_div(torch._foreach_div(self.mu, bc1),
-                                         denom)
+            self.mu, self.nu, updates = adam_update(
+                grads, self.mu, self.nu, [count] * len(grads), self.eps)
         else:
             updates = grads
         for label, sched in self.schedules.items():
@@ -204,3 +214,65 @@ def build_optimizer(
     return ChainOptimizer(model.named_parameters(), lr_dict, optimizer_type,
                           eps, schedule, total_steps, warmup_steps,
                           grad_clip_norm, accumulate_steps, finetune_filter)
+
+
+class GaussianOptimizer:
+    """Per-attribute optimizer over raw Gaussian parameters (port of
+    build_gs_optimizer's and fit_gs.build_fit_optimizer's
+    ``optax.multi_transform``): one Adam (b1 0.9, b2 0.999, eps outside the
+    square root, bias-corrected) or SGD a key of the parameter dict, each
+    with its own update count. A learning rate is a float, or a schedule
+    count -> lr read at the count before the update, as optax's
+    scale_by_schedule does. ``step`` updates the parameters in place."""
+
+    def __init__(self, params: Dict[str, torch.Tensor],
+                 lrs: Dict[str, object], optimizer_type: str = "adam",
+                 eps: float = 1e-15):
+        if optimizer_type.lower() not in ("adam", "sgd"):
+            raise NotImplementedError(optimizer_type)
+        self.adam = optimizer_type.lower() == "adam"
+        self.lrs = dict(lrs)
+        self.eps = eps
+        self.mu = {k: torch.zeros_like(p) for k, p in params.items()}
+        self.nu = {k: torch.zeros_like(p) for k, p in params.items()}
+        self.count = dict.fromkeys(params, 0)
+
+    def lr(self, key: str) -> float:
+        lr = self.lrs[key]
+        return float(lr(self.count[key])) if callable(lr) else lr
+
+    @torch.no_grad()
+    def step(self, params: Dict[str, torch.Tensor],
+             grads: Dict[str, torch.Tensor]) -> None:
+        keys = list(params)
+        counts = [self.count[k] + 1 for k in keys]
+        updates = [grads[k] for k in keys]
+        if self.adam:
+            mu, nu, updates = adam_update(updates,
+                                          [self.mu[k] for k in keys],
+                                          [self.nu[k] for k in keys],
+                                          counts, self.eps)
+            self.mu.update(zip(keys, mu))
+            self.nu.update(zip(keys, nu))
+        torch._foreach_add_([params[k] for k in keys], torch._foreach_mul(
+            updates, [-self.lr(k) for k in keys]))
+        self.count.update(zip(keys, counts))
+
+    @torch.no_grad()
+    def reset_rows(self, rows: torch.Tensor) -> None:
+        """Zero both moments of the given slots of every attribute (new
+        Gaussians start with fresh moments); the counts are kept."""
+        for k in self.mu:
+            self.mu[k][rows] = 0
+            self.nu[k][rows] = 0
+
+
+def build_gs_optimizer(gs_params: Dict[str, torch.Tensor],
+                       lr_dict: Dict[str, float],
+                       optimizer_type: str = "adam",
+                       eps: float = 1e-15) -> GaussianOptimizer:
+    """Per-attribute optimizer over raw Gaussian parameters (the reference's
+    build_3DGSoptimizer, utils/optimizers.py:18-37): a key's learning rate
+    is ``lr_dict[key]``, else ``lr_dict['base']``, else 1e-3."""
+    lrs = {k: lr_dict.get(k, lr_dict.get("base", 1e-3)) for k in gs_params}
+    return GaussianOptimizer(gs_params, lrs, optimizer_type, eps)

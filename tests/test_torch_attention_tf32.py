@@ -34,6 +34,18 @@ TILE, K8 = 64, 8   # keys a staged tile; the reduction depth of one mma
 LOG2E = 1.0 / math.log(2.0)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def few_threads():
+    """Two intra-op threads for this module's CPU runs: torch's default, a
+    thread per core in each of the suite's parallel workers,
+    oversubscribes the cores they share
+    (tests/test_torch_checkpoint_metrics.py)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def tf32(x):
     """float32 rounded to TF32 by its bits, as cvt.rna.tf32.f32: add half
     of the 13 dropped bits' range to the magnitude, then clear them (ties

@@ -31,6 +31,18 @@ LOG2E = 1.0 / math.log(2.0)
 bf16 = torch.bfloat16
 
 
+@pytest.fixture(autouse=True, scope="module")
+def few_threads():
+    """Two intra-op threads for this module's CPU runs: torch's default, a
+    thread per core in each of the suite's parallel workers,
+    oversubscribes the cores they share
+    (tests/test_torch_checkpoint_metrics.py)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def _round(x):
     """float32 rounded to bfloat16 and back: the kernels' pack to bf16x2."""
     return x.to(bf16).float()

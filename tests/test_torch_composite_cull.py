@@ -17,6 +17,18 @@ from splatformer_tpu_torch.kernels.composite import (  # noqa: E402
     PIXELS, PLAIN_CHUNK, TILE, USED_ROWS, composite_bwd_plain,
     composite_fwd_plain, pixel_box, warp_box_keep_plain)
 
+@pytest.fixture(autouse=True, scope="module")
+def few_threads():
+    """Two intra-op threads for this module's CPU runs: torch's default, a
+    thread per core in each of the suite's parallel workers,
+    oversubscribes the cores they share
+    (tests/test_torch_checkpoint_metrics.py)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 THR = 1.0 / 255.0
 MAX_ALPHA = 0.999
 EPS_T = 1e-4

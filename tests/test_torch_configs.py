@@ -88,8 +88,8 @@ def test_unknown_field_raises(bad):
 
 @pytest.mark.parametrize("kind,name", [("model", "ptv3_tome"),
                                        ("model", "spunet"),
-                                       ("dataset", "objaverse"),
-                                       ("dataset", "oodbench_512")])
+                                       ("model", "ptv3_voxel"),
+                                       ("dataset", "no_such_set")])
 def test_unported_config_raises(kind, name):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         load_config(kind, name)

@@ -31,6 +31,18 @@ from splatformer_tpu_torch.ops.types import GaussianScene, RasterizeConfig  # no
 from splatformer_tpu_torch.training.optim import (build_optimizer,  # noqa: E402
                                                   build_schedule)
 
+@pytest.fixture(autouse=True, scope="module")
+def few_threads():
+    """Two intra-op threads for this module's CPU runs: torch's default, a
+    thread per core in each of the suite's parallel workers,
+    oversubscribes the cores they share
+    (tests/test_torch_checkpoint_metrics.py)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 ATTRS = ("means", "scales", "quats", "opacities", "features_dc",
          "features_rest")
 FIELDS = ATTRS + ("mask",)
