@@ -42,6 +42,13 @@ Phases, each printing one JSON line:
             step on the CPU (plain versions), same seed and weights;
   reference_flash  the same with a tiny enable_flash model (patch 128,
             head widths 16, 24 and 32): K3-fwd once a block;
+  merge_reference  tiny models of every other model config (the ten
+            ptv3_* variants, spunet), the three ToMeSD modes on ptv3_tome,
+            PT_embedding and turn_off_bn, card against CPU: the first
+            block's merge selection and every downsampler's indices
+            identical, refined attributes within 1e-4, PSNR 1e-3 dB, SSIM
+            1e-4, K1 once, K3 never; the share of identical selections over
+            all merges (near-ties may flip between the two devices' sums);
   serving   PTv3-base at full width, seeded random weights (final head
             layers scaled small), answering 3 eval requests of 100k
             Gaussians (padded to 100352) x 4 views at 256^2 each: latency
@@ -51,6 +58,22 @@ Phases, each printing one JSON line:
   serving_flash  the same with enable_flash (patch 1024): K1 once and
             K3-fwd 22 times (once a block, float32) per request, no K2, no
             K3-bwd;
+  serving_merge  PTv3-base at full width with each of the ten ptv3_*
+            variants and spunet: one warm-up, then 2 requests of 100k
+            Gaussians x 4 views at 256^2: latency, peak memory, PSNR against
+            the clean render, finite outputs, num_dropped 0, K1 once a
+            request and K3 never; every merge leaves the tokens a patch that
+            the JAX package's counts give (expected_tokens; ALGM keeps K'
+            = K and reports its live tokens), each downsampling its live
+            points; for fps the FPS loop's ms alone;
+  serving_merge_flash  ptv3_tome with enable_flash and tome_attention off:
+            the attention stays on K3 (22 launches a request), tome_mlp
+            merges the MLP's tokens;
+  training_merge  one bf16 PTv3-base step with ptv3_tome and one with
+            ptv3_drop at full width (heads x0.01, so gradients cross the
+            merges and the map-back), after a warm-up each: finite losses,
+            K1 and K2 once a step; with serving_merge*, the kernels line's
+            ``merge_launches``;
   train_reference  a tiny model (drop_path 0, a fixed order shuffle,
             LPIPS from seeded random weights) on the card against the CPU:
             2 f32 SGD steps, each from the same state (losses, every
@@ -125,7 +148,8 @@ Phases, each printing one JSON line:
             line parses, with bench.py's keys, positive rates and the
             card's name and power limit.
 Launch counts are reset at the start of each phase and checked per phase.
-Then the {"kernels": [...]} line, the card's name and power limit, and as
+Then the smoke's total seconds (and the merge phases' share), the
+{"kernels": [...]} line, the card's name and power limit, and as
 the last line {"ok": true, "device": {...}}. Any failure raises and exits
 non-zero; without a CUDA device it exits 1 before any phase.
 """
@@ -787,6 +811,396 @@ def phase_serving(flash=False):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# token merging, input downsampling and the other model options
+# ---------------------------------------------------------------------------
+
+# every model config of the JAX package beside ptv3_base
+MERGE_CONFIGS = ("ptv3_tome", "ptv3_tofu", "ptv3_pitome", "ptv3_prune",
+                 "ptv3_patch", "ptv3_wpatch", "ptv3_algm", "ptv3_fps",
+                 "ptv3_voxel", "ptv3_drop", "spunet")
+# the ToMeSD modes, which ride ptv3_tome (the sweep's mapping)
+TOMESD_MODES = ("random_patch", "progressive", "important_patch")
+MERGE_REQUESTS = 2      # timed requests a configuration, after one warm-up
+TINY_SP = dict(base_channels=16, channels=(16, 32), dec_channels=(16,),
+               depths=(1, 1), dec_depths=(1,), stride=(2,),
+               pool_capacity_factors=(0.75,), output_dim=16)
+
+
+def option_config(name, tiny=False):
+    """The model config ``name``: a config file of the port, a ToMeSD mode
+    on ptv3_tome, or ptv3_base with "pt_embedding" or "turn_off_bn"; at
+    tiny_config's widths when ``tiny``."""
+    from splatformer_tpu_torch.configs import load_config
+    if name in TOMESD_MODES:
+        cfg = load_config("model", "ptv3_tome")
+        cfg.additional_info["tome"] = name
+    elif name in ("pt_embedding", "turn_off_bn"):
+        cfg = load_config("model", "ptv3_base")
+    else:
+        cfg = load_config("model", name)
+    if tiny:
+        t = tiny_config()
+        cfg.backbone, cfg.grid_resolution = t.backbone, t.grid_resolution
+        cfg.zeroinit = t.zeroinit
+        cfg.sp_backbone = dict(TINY_SP) if cfg.sp_backbone else {}
+    if name == "pt_embedding":
+        cfg.backbone.embedding_type = "PT_embedding"
+    cfg.backbone.turn_off_bn = name == "turn_off_bn"
+    return cfg
+
+
+def expected_tokens(info, k):
+    """K', the tokens a merge leaves of a patch of k, by the JAX package's
+    counts (ops/merging.py: _merge_count caps int(k r) at k // 2; PiToMe's
+    protected src slots, pruning's k - 1, the block modes' whole blocks of
+    g tokens, wpatch's low_r); ALGM keeps K' = k. Computed here, apart
+    from the port's code."""
+    mode, r = info["tome"], float(info["r"])
+    rc = max(0, min(k // 2, int(k * r)))
+    if mode == "pitome" and info.get("protected_ratio", 0.0) > 0:
+        n_p = int(np.ceil(info["protected_ratio"] * k))
+        rc = min(rc, k // 2 - sum(1 for i in range(k - n_p, k) if i % 2 == 0))
+    if mode in ("tome", "tofu", "progressive", "pitome"):
+        return k - rc
+    if mode == "prune":
+        return k - min(rc, k - 1)
+    if mode == "algm":
+        return k
+    if mode == "wpatch":
+        rc = min(rc, max(0, k - int(info.get("low_r", 16))))
+    g = max(2, min(int(info.get("stride", 10)), k))
+    while k % g:
+        g -= 1
+    return k - (min(k // g, rc // (g - 1)) if g > 1 else 0) * (g - 1)
+
+
+def route_pattern(merge, metric):
+    """merge(I)'s nonzero pattern (B, H, K', K) on the CPU: which tokens
+    each reduced token takes, the merge's selection."""
+    k = metric.shape[-2]
+    eye = torch.eye(k, device=metric.device, dtype=metric.dtype)
+    return (merge(eye.expand(*metric.shape[:2], k, k)) != 0).cpu()
+
+
+def pitome_near_tie_heads(metric, info, tol=1e-6):
+    """(B, H) bool: the patch-heads where PiToMe's selection hangs on a
+    near-tie, from ``metric`` on the CPU: a similarity within ``tol`` of
+    the margin (the energy jumps there by about margin / K) or two energies
+    within ``tol`` (their order decides the src/dst split). The energy as
+    ops/merging.py:_pitome forms it, written out here."""
+    kn = metric / (torch.linalg.vector_norm(metric, dim=-1, keepdim=True)
+                   + 1e-6)
+    sim = kn @ kn.mT
+    margin, alpha = info.get("margin", 0.9), info.get("alpha", 1.0)
+    f = torch.where(sim >= margin, sim,
+                    alpha * (torch.exp(sim - margin) - 1.0))
+    energy = f.mean(-1).sort(-1).values
+    return (((sim - margin).abs() < tol).flatten(2).any(-1)
+            | ((energy[..., 1:] - energy[..., :-1]) < tol).any(-1))
+
+
+def unexplained_heads(record):
+    """The (patch, head) pairs whose selection the CPU, merging the card's
+    own metric, makes otherwise than the card did; for PiToMe, less those
+    at a near-tie (pitome_near_tie_heads)."""
+    from splatformer_tpu_torch.ops import merging
+    pattern, metric, mode, info = record
+    mine = route_pattern(merging.build_merge(mode, metric, info)[0], metric)
+    differ = ~(mine == pattern).flatten(2).all(-1)
+    if mode == "pitome":
+        differ &= ~pitome_near_tie_heads(metric, info)
+    return int(differ.sum())
+
+
+class SelectionRecorder:
+    """While active, records what the model's merges and downsamplers
+    select: each merge's patch size, reduced size and live tokens (size >
+    0), with ``routes`` also (route_pattern, its metric, mode, info) on
+    the CPU; each downsampling's method, its indices on the CPU (fps's and
+    voxel's assignments, random's kept points) and its live reduced
+    points."""
+
+    def __init__(self, routes=False):
+        self.routes = routes
+
+    def __enter__(self):
+        from splatformer_tpu_torch.ops import downsample, merging
+        self.merges, self.tokens, self.downsamples = [], [], []
+        self._saved = []
+
+        def wrap(module, name, record):
+            orig = getattr(module, name)
+
+            def wrapped(*a, **kw):
+                out = orig(*a, **kw)
+                record(a, out)
+                return out
+            self._saved.append((module, name, orig))
+            setattr(module, name, wrapped)
+
+        def merge(a, out):
+            metric, size = a[1], out[2]
+            k = metric.shape[-2]
+            self.tokens.append((k, size.shape[-2], (size > 0).sum(-2)))
+            if self.routes:
+                self.merges.append((route_pattern(out[0], metric),
+                                    metric.cpu(), a[0], a[2]))
+        wrap(merging, "build_merge", merge)
+        for name in ("fps_knn_downsample", "voxel_downsample",
+                     "random_downsample"):
+            wrap(downsample, name, lambda a, out, name=name:
+                 self.downsamples.append((name, out[3].cpu(),
+                                          int(out[2].sum()))))
+        return self
+
+    def __exit__(self, *exc):
+        for module, name, orig in self._saved:
+            setattr(module, name, orig)
+
+    def token_summary(self):
+        """[(k, K', mean live tokens a patch)] of the recorded merges."""
+        return [(k, kp, float(live.float().mean()))
+                for k, kp, live in self.tokens]
+
+
+def phase_merge_reference():
+    """Tiny models of every config beside ptv3_base (the ToMeSD modes,
+    PT_embedding and turn_off_bn too) on the card against the CPU, same
+    seed, weights and scene; K1 once on the card's eval step, K3 never.
+
+    Each merge the card made is made again on the CPU from the card's own
+    metric: the selections must be identical (the merge is the same
+    function on both devices), except in a (patch, head) where PiToMe hangs
+    on a near-tie: its similarities and energies are the two devices' own
+    sums, and a similarity within an ulp of the margin, or two energies an
+    ulp apart, may fall either way (pitome_near_tie_heads). Card and
+    CPU sums differ in the last ulp, so such a near-tie in the model's own
+    metric may also pick another token between the two runs: the share of
+    identical selections is reported, and where every selection and every
+    downsampler's indices agree the refined attributes must be within
+    1e-4, PSNR within 1e-3 dB and SSIM within 1e-4."""
+    from splatformer_tpu_torch.kernels import LAUNCHES, reset_launches
+    from splatformer_tpu_torch.models.feature_predictor import (
+        build_feature_predictor)
+    from splatformer_tpu_torch.ops import merging
+    from splatformer_tpu_torch.training.train_step import make_eval_step
+    attrs = ("means", "scales", "quats", "opacities", "features_dc",
+             "features_rest")
+    batches = {d: make_request(7, 4096, 4000, 2, 64, d)
+               for d in ("cpu", "cuda")}
+    rows = []
+    for name in MERGE_CONFIGS + TOMESD_MODES + ("pt_embedding",
+                                                "turn_off_bn"):
+        cfg = option_config(name, tiny=True)
+        got, rec = {}, {}
+        for dev in ("cpu", "cuda"):
+            model = build_feature_predictor(cfg, device=dev, seed=1,
+                                            head_final_scale=0.1)
+            with SelectionRecorder(routes=True) as rec[dev], \
+                    torch.inference_mode():
+                refined = model(batches[dev].scene)
+            reset_launches()
+            ev = make_eval_step(model)(batches[dev])
+            launches = dict(LAUNCHES)
+            got[dev] = ([getattr(refined, a).cpu() for a in attrs],
+                        [x.cpu() for x in ev[2:4]])
+        (ref_c, met_c), (ref_g, met_g) = got["cpu"], got["cuda"]
+        mg, mc = rec["cuda"].merges, rec["cpu"].merges
+        unexplained = sum(unexplained_heads(r) for r in mg)
+        same_input = unexplained == 0
+        rows_same = [float((a[0] == b[0]).all(-1).float().mean())
+                     for a, b in zip(mg, mc)]
+        agree = (len(mg) == len(mc) and all(r == 1.0 for r in rows_same)
+                 and all(torch.equal(a[1], b[1]) for a, b in
+                         zip(rec["cuda"].downsamples,
+                             rec["cpu"].downsamples)))
+        row = {"config": name,
+               "max_abs_err": max(float((a - b).abs().max())
+                                  for a, b in zip(ref_g, ref_c)),
+               "psnr_err": float((met_g[0] - met_c[0]).abs().max()),
+               "ssim_err": float((met_g[1] - met_c[1]).abs().max()),
+               "merges": len(mg), "same_input_unexplained_heads": unexplained,
+               "first_merge_identical": bool(mg) and rows_same[0] == 1.0,
+               "identical_selection_share": (float(np.mean(rows_same))
+                                             if rows_same else None),
+               "downsamples": len(rec["cuda"].downsamples),
+               "all_selections_identical": agree, "launches": launches}
+        if mg:
+            # the first merge's metric on the two devices, and (PiToMe)
+            # the similarities that fall on either side of the margin
+            (_, a, mode, info), (_, b, _, _) = mg[0], mc[0]
+            row["first_metric_max_abs_diff"] = float((a - b).abs().max())
+            if mode == "pitome":
+                sims = [merging._normalize(x) @ merging._normalize(x).mT
+                        for x in (a, b)]
+                row["margin_straddles"] = int(
+                    ((sims[0] >= info["margin"])
+                     != (sims[1] >= info["margin"])).sum())
+        rows.append(row)
+        emit({"phase": "merge_reference", **row})
+        merges_expected = name not in ("ptv3_fps", "ptv3_voxel", "ptv3_drop",
+                                       "spunet", "pt_embedding",
+                                       "turn_off_bn")
+        close = (row["max_abs_err"] <= 1e-4 and row["psnr_err"] <= 1e-3
+                 and row["ssim_err"] <= 1e-4)
+        if not (same_input and (close or not agree)
+                and bool(mg) == merges_expected
+                and (row["downsamples"] > 0) == (name in (
+                    "ptv3_fps", "ptv3_voxel", "ptv3_drop"))
+                and launches == {"composite_fwd": 1, "composite_bwd": 0,
+                                 "attention_fwd": 0, "attention_bwd": 0}):
+            raise AssertionError(f"merge_reference {name}: {row}")
+    shares = [r["identical_selection_share"] for r in rows
+              if r["identical_selection_share"] is not None]
+    emit({"phase": "merge_reference_summary", "configs": len(rows),
+          "configs_all_identical": sum(r["all_selections_identical"]
+                                       for r in rows),
+          "identical_selection_share_min": min(shares),
+          "identical_selection_share_mean": float(np.mean(shares))})
+
+
+def phase_serving_merge(requests, flash=False):
+    """PTv3-base at full width with each config of MERGE_CONFIGS (with
+    ``flash``: ptv3_tome with enable_flash and tome_attention off), seeded
+    random weights (final head layers x0.01): one warm-up request, which
+    records the merges' token counts, then MERGE_REQUESTS timed requests of
+    100k Gaussians x 4 views at 256^2. Fails unless the outputs are finite,
+    num_dropped is 0, every merge leaves expected_tokens (ALGM: K' = K,
+    its live tokens reported), K1 runs once a request and K3 never (with
+    ``flash``: 22 times a request). Returns the summed launches."""
+    from splatformer_tpu_torch.eval_sweep import fps_loop_ms
+    from splatformer_tpu_torch.kernels import LAUNCHES, reset_launches
+    from splatformer_tpu_torch.models.feature_predictor import (
+        build_feature_predictor)
+    from splatformer_tpu_torch.training.train_step import make_eval_step
+    phase = "serving_merge_flash" if flash else "serving_merge"
+    totals = dict.fromkeys(LAUNCHES, 0)
+    for name in ("ptv3_tome",) if flash else MERGE_CONFIGS:
+        cfg = option_config(name)
+        cfg.zeroinit = False
+        if flash:
+            cfg.backbone.enable_flash = True
+            cfg.additional_info["tome_attention"] = False
+        model = build_feature_predictor(cfg, device="cuda", seed=0,
+                                        head_final_scale=0.01)
+        step = make_eval_step(model)
+        with SelectionRecorder() as rec:
+            step(requests[0])  # warm-up
+        torch.cuda.synchronize()
+        tokens = rec.token_summary()
+        lat, res = [], []
+        reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        for req in requests[1:1 + MERGE_REQUESTS]:
+            t0 = time.perf_counter()
+            rgb, alpha, psnr, ssim, dropped = step(req)
+            torch.cuda.synchronize()
+            lat.append((time.perf_counter() - t0) * 1e3)
+            res.append((bool(torch.isfinite(rgb).all()
+                             and torch.isfinite(alpha).all()),
+                        float(psnr.mean()), float(ssim.mean()),
+                        int(dropped)))
+        launches = dict(LAUNCHES)
+        info = cfg.additional_info
+        row = {"phase": phase, "config": name, "latency_ms": lat,
+               "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+               "psnr": [r[1] for r in res], "ssim": [r[2] for r in res],
+               "num_dropped": [r[3] for r in res],
+               "finite": all(r[0] for r in res), "launches": launches,
+               "merges": len(tokens)}
+        if tokens:
+            row["tokens_per_patch"] = sorted({(k, kp) for k, kp, _ in tokens})
+            row["expected_tokens"] = sorted({(k, expected_tokens(info, k))
+                                            for k, _, _ in tokens})
+            row["live_tokens_mean"] = float(np.mean([t[2] for t in tokens]))
+        if rec.downsamples:
+            row["downsample"], _, row["reduced_points"] = rec.downsamples[0]
+        if name == "ptv3_fps":
+            row["fps_loop_ms"] = fps_loop_ms(requests[0].scene,
+                                             info["downsample_ratio"])
+        emit(row)
+        k3 = K3_BLOCKS * MERGE_REQUESTS if flash else 0
+        expect_merges = (0 if name in ("ptv3_fps", "ptv3_voxel", "ptv3_drop",
+                                       "spunet")
+                         else K3_BLOCKS if flash else 2 * K3_BLOCKS)
+        if not (row["finite"] and all(d == 0 for d in row["num_dropped"])
+                and all(np.isfinite(row["psnr"]))
+                and len(tokens) == expect_merges
+                and all(kp == expected_tokens(info, k)
+                        for k, kp, _ in tokens)
+                and (name != "ptv3_algm"
+                     or row["live_tokens_mean"] < tokens[0][0])
+                and (name not in ("ptv3_fps", "ptv3_voxel", "ptv3_drop")
+                     or row.get("reduced_points", 0) > 0)
+                and launches == {"composite_fwd": MERGE_REQUESTS,
+                                 "composite_bwd": 0, "attention_fwd": k3,
+                                 "attention_bwd": 0}):
+            raise AssertionError(f"{phase} {name}: {row}")
+        for k in totals:
+            totals[k] += launches[k]
+        del model, step
+        torch.cuda.empty_cache()
+    return totals
+
+
+def phase_training_merge(requests):
+    """One bf16 train step of PTv3-base at full width with ptv3_tome
+    (merging in every block's attention and MLP) and one with ptv3_drop
+    (random downsampling drawn from the generator), after a warm-up step
+    each; heads not zero-initialised (x0.01) so gradients cross the
+    merges and the map-back. Fails unless the losses are finite,
+    num_dropped is 0 and K1 and K2 run once a step (K3 never). Returns
+    the summed launches."""
+    from splatformer_tpu_torch.configs.train_default import \
+        get_config as train_config
+    from splatformer_tpu_torch.kernels import LAUNCHES, reset_launches
+    from splatformer_tpu_torch.models.feature_predictor import (
+        build_feature_predictor)
+    from splatformer_tpu_torch.training.optim import build_optimizer
+    from splatformer_tpu_torch.training.train_step import make_train_step
+    tcfg = train_config()
+    oc = tcfg.optimizer
+    totals = dict.fromkeys(LAUNCHES, 0)
+    for name in ("ptv3_tome", "ptv3_drop"):
+        cfg = option_config(name)
+        cfg.zeroinit = False
+        model = build_feature_predictor(cfg, device="cuda", seed=0,
+                                        head_final_scale=0.01,
+                                        compute_dtype="bfloat16")
+        opt = build_optimizer(model, dict(oc.lr_dict), oc.type, oc.eps,
+                              oc.schedule, tcfg.total_steps, oc.warmup_steps,
+                              tcfg.grad_clip_norm)
+        step = make_train_step(model, opt)
+        gen = torch.Generator(device="cuda").manual_seed(tcfg.seed)
+        step(requests[0], gen)  # warm-up
+        torch.cuda.synchronize()
+        reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        m = step(requests[1], gen)
+        torch.cuda.synchronize()
+        row = {"phase": "training_merge", "config": name,
+               "ms": (time.perf_counter() - t0) * 1e3,
+               "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+               "launches": dict(LAUNCHES),
+               **{k: float(v) for k, v in m.items()}}
+        emit(row)
+        if not (all(np.isfinite(row[k]) for k in
+                    ("total_loss", "image_l1", "train_psnr"))
+                and row["num_dropped"] == 0
+                and row["launches"] == {"composite_fwd": 1,
+                                        "composite_bwd": 1,
+                                        "attention_fwd": 0,
+                                        "attention_bwd": 0}):
+            raise AssertionError(f"training_merge {name}: {row}")
+        for k in totals:
+            totals[k] += row["launches"][k]
+        del model, opt, step
+        torch.cuda.empty_cache()
+    return totals
+
+
 def train_delta_check(init, got, ref):
     """Parameter updates of two runs from one ``init`` state_dict: each
     tensor's update within 2e-3 of its largest plus 5e-4 of the model's
@@ -1023,18 +1437,20 @@ def phase_train_reference_flash():
                              f"want {expected}")
 
 
-def k3_entry(name, source, replaces, launches, totals,
+def k3_entry(name, source, replaces, launches, totals, merge_launches,
              serving_launches=None):
     """The kernels line's entry of a K3 kernel: its sums over one forward
     pass's launches in bfloat16, the train step's type; with
     ``serving_launches`` also, under "float32", the same for float32, the
-    serving path's type, with that path's launches."""
+    serving path's type, with that path's launches; ``merge_launches``
+    those of the merge phases."""
     def sums(t):
         return {"max_abs_err": t["max_abs_err"], "ms": t["ms"],
                 "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                 "bound_by": t["bound_by"], "library_ms": t["library_ms"]}
     entry = {"name": name, "route": "cuda", "source": source,
              "replaces": replaces, "launches": launches[name],
+             "merge_launches": merge_launches[name],
              **sums(totals["bfloat16"]),
              "per": f"one forward pass: {K3_BLOCKS} launches, bfloat16"}
     if serving_launches is not None:
@@ -1735,6 +2151,7 @@ def main():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
     import splatformer_tpu_torch  # noqa: F401  (the port, from this checkout)
+    t_start = time.perf_counter()
 
     resources = phase_build()
     k1 = phase_k1()
@@ -1743,9 +2160,24 @@ def main():
     k3_bwd = phase_k3(resources, backward=True)
     phase_reference()
     phase_reference(flash=True)
+    t_merge = time.perf_counter()
+    phase_merge_reference()
+    merge_seconds = time.perf_counter() - t_merge
     phase_serving()
     torch.cuda.empty_cache()
     serving_flash = phase_serving(flash=True)  # float32 K3-fwd's path
+    torch.cuda.empty_cache()
+    t_merge = time.perf_counter()
+    merge_requests = [make_request(300 + i, SCENE_PAD, SCENE_N, VIEWS, HW,
+                                   "cuda")
+                      for i in range(1 + MERGE_REQUESTS)]
+    merge_launches = phase_serving_merge(merge_requests)
+    for totals in (phase_serving_merge(merge_requests, flash=True),
+                   phase_training_merge(merge_requests)):
+        for k in merge_launches:
+            merge_launches[k] += totals[k]
+    del merge_requests
+    merge_seconds += time.perf_counter() - t_merge
     phase_train_reference()
     phase_train_reference_flash()
     torch.cuda.empty_cache()
@@ -1761,6 +2193,8 @@ def main():
     fit_launches = phase_factory()  # the data factory and its loaders
     torch.cuda.empty_cache()  # the bench's own process needs ~40 GB
     phase_bench()
+    emit({"phase": "total", "seconds": time.perf_counter() - t_start,
+          "merge_phases_seconds": merge_seconds})
     flash_src = "jax/experimental/pallas/ops/tpu/flash_attention.py"
     emit({"kernels": [{
         "name": "composite_fwd", "route": "cuda",
@@ -1769,6 +2203,7 @@ def main():
         "launches": launches["composite_fwd"],
         "loop_launches": loop_launches["composite_fwd"],
         "fit_launches": fit_launches["composite_fwd"],
+        "merge_launches": merge_launches["composite_fwd"],
         "max_abs_err": max(k1["max_abs_err_rgb"], k1["max_abs_err_T"]),
         "ms": k1["ms"], "plain_ms": k1["plain_ms"],
         "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
@@ -1779,6 +2214,7 @@ def main():
         "launches": launches["composite_bwd"],
         "loop_launches": loop_launches["composite_bwd"],
         "fit_launches": fit_launches["composite_bwd"],
+        "merge_launches": merge_launches["composite_bwd"],
         "max_abs_err": k2["max_abs_err"],
         "ms": k2["ms"], "plain_ms": k2["plain_ms"],
         "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
@@ -1787,11 +2223,12 @@ def main():
                  "splatformer_tpu_torch/csrc/attention_fwd.cu",
                  f"{flash_src}:342 (called at "
                  "splatformer_tpu/models/ptv3.py:118)", launches, k3,
-                 serving_flash),
+                 merge_launches, serving_flash),
         k3_entry("attention_bwd",
                  "splatformer_tpu_torch/csrc/attention_bwd.cu",
                  f"{flash_src}:796 and :1146 (called at "
-                 "splatformer_tpu/models/ptv3.py:118)", launches, k3_bwd)]})
+                 "splatformer_tpu/models/ptv3.py:118)", launches, k3_bwd,
+                 merge_launches)]})
     smi = subprocess.run(
         ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],

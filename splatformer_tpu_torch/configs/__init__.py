@@ -3,11 +3,13 @@ of python configs (model / dataset / train), each a module
 ``{kind}_{name}.py`` whose ``get_config()`` returns a dataclass, with
 ``a.b.c=value`` CLI overrides.
 
-The port has the configs it runs: ``model ptv3_base``, the datasets
-``synthetic``, ``oodbench``, ``oodbench_scale``, ``oodbench_512``,
+The port has every config of the JAX package: the models ``ptv3_base``,
+its ten variants ``ptv3_{algm,drop,fps,patch,pitome,prune,tofu,tome,voxel,
+wpatch}`` (token merging and input downsampling) and ``spunet``, the
+datasets ``synthetic``, ``oodbench``, ``oodbench_scale``, ``oodbench_512``,
 ``objaverse`` and ``shapenet``, and ``train default``. Loading any other
-name raises NotImplementedError (the JAX package's other model configs are
-queued in ROADMAP.md). An override of a field that does not exist raises;
+name raises NotImplementedError. An override of a field that does not
+exist raises;
 keys of a dict field (``train.optimizer.lr_dict.means=1e-4``,
 ``dataset.test.folders``) may be added.
 """
@@ -48,8 +50,8 @@ def load_config(kind: str, name: str) -> Any:
         if e.name != module:
             raise
         raise NotImplementedError(
-            f"{kind} config {name!r} is not ported yet (see ROADMAP.md, "
-            "queue 1)") from None
+            f"no {kind} config {name!r} in the port, which has every config "
+            "of the JAX package (ROADMAP.md)") from None
     return mod.get_config()
 
 

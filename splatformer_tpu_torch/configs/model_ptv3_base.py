@@ -48,7 +48,8 @@ class BackboneConfig:
             stride=tuple(self.stride), mlp_ratio=self.mlp_ratio,
             drop_path=self.drop_path,
             pool_capacity_factors=tuple(self.pool_capacity_factors),
-            use_flash=self.enable_flash)
+            use_flash=self.enable_flash, turn_off_bn=self.turn_off_bn,
+            embedding_type=self.embedding_type)
 
 
 @dataclass
@@ -76,6 +77,8 @@ class ModelConfig:
         "opacities": "identity", "quats": "identity"})
     input_feat_to_mlp: bool = True
     backbone: BackboneConfig = field(default_factory=BackboneConfig)
+    # SpUNet's keyword arguments (backbone_type "SP", model_spunet)
+    sp_backbone: Dict[str, Any] = field(default_factory=dict)
     additional_info: Dict[str, Any] = field(default_factory=lambda: {
         "tome": "base", "r": 0.0, "tome_mlp": True, "tome_attention": True,
         "trace_back": False, "single_head_tome": False, "margin": 0.9})

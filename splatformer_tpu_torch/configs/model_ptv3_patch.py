@@ -1,0 +1,13 @@
+"""PTv3 variant 'patch' (copy of splatformer_tpu/configs/model_ptv3_patch.py,
+after the reference's configs/model/ptv3_patch.gin): PTv3-base with these
+``additional_info`` entries."""
+from splatformer_tpu_torch.configs.model_ptv3_base import ModelConfig
+from splatformer_tpu_torch.configs.model_ptv3_base import get_config as _base
+
+
+def get_config() -> ModelConfig:
+    cfg = _base()
+    cfg.additional_info["tome"] = "patch"
+    cfg.additional_info["r"] = 0.5
+    cfg.additional_info["stride"] = 10
+    return cfg

@@ -1,0 +1,12 @@
+"""PTv3 variant 'tome' (copy of splatformer_tpu/configs/model_ptv3_tome.py,
+after the reference's configs/model/ptv3_tome.gin): PTv3-base with these
+``additional_info`` entries."""
+from splatformer_tpu_torch.configs.model_ptv3_base import ModelConfig
+from splatformer_tpu_torch.configs.model_ptv3_base import get_config as _base
+
+
+def get_config() -> ModelConfig:
+    cfg = _base()
+    cfg.additional_info["tome"] = "tome"
+    cfg.additional_info["r"] = 0.9
+    return cfg

@@ -6,11 +6,15 @@ port's ``state_dict``. The port keeps the flax module names, so the map is
 one to one apart from:
 
   * Dense ``kernel`` (in, out) -> Linear ``weight`` (out, in), transposed;
-  * LayerNorm ``scale`` -> ``weight`` (norm1 / norm2);
+  * LayerNorm ``scale`` -> ``weight`` (a PTv3 block's norm1 / norm2; a
+    SpUNet block's norm0 / norm1, beside its ``conv0_kernel``, are
+    BatchNorms and keep ``scale``);
   * auto-named ``Dense_j`` -> ``fc{j+1}`` in a block MLP and ``linears.j``
     in an output head;
   * MaskedBatchNorm ``scale``/``bias`` and its ``mean``/``var`` statistics,
-    and the xCPE ``cpe_conv_kernel`` (27, Cin, Cout), keep name and layout.
+    and the conv kernels (27, Cin, Cout) (``cpe_conv_kernel``, the
+    PT_embedding stem's ``embed_conv_kernel``, SpUNet's ``conv{j}_kernel``)
+    with their biases, keep name and layout.
 
 The port's ``batch_stats`` after a train step are its BatchNorm buffers
 under the same names, so the map holds in both directions.
@@ -54,12 +58,15 @@ def state_dict_from_flax(params: Mapping[str, Any],
                          batch_stats: Optional[Mapping[str, Any]] = None
                          ) -> Dict[str, torch.Tensor]:
     sd: Dict[str, torch.Tensor] = {}
+    conv_blocks = {path[:-1] for path, _ in _flatten(params)
+                   if path[-1] == "conv0_kernel"}   # SpUNet's blocks
     for tree in (params, batch_stats or {}):
         for path, arr in _flatten(tree):
             mod, leaf = _module_path(path[:-1]), path[-1]
             if leaf == "kernel":
                 leaf, arr = "weight", arr.T
-            elif leaf == "scale" and mod[-1] in _LAYER_NORMS:
+            elif (leaf == "scale" and mod[-1] in _LAYER_NORMS
+                  and path[:-2] not in conv_blocks):
                 leaf = "weight"
             sd[".".join(mod + [leaf])] = torch.tensor(arr,
                                                       dtype=torch.float32)

@@ -1,20 +1,29 @@
-"""FeaturePredictor: Gaussian-attribute refinement heads over the PTv3
+"""FeaturePredictor: Gaussian-attribute refinement heads over a point
 backbone (port of splatformer_tpu/models/feature_predictor.py).
 
 Input feature = the per-Gaussian attributes concatenated in the configured
-order; PTv3 over the means voxelised at grid_resolution; optional concat of
-the input features onto the backbone output; one ReLU MLP head per output
-attribute; residual ('res': in + act(head)) or direct ('dc') outputs;
-attributes not predicted are copied through, padded slots untouched.
-In training the four serialization orders are shuffled (a permutation
-drawn from the caller's generator, or given), DropPath draws from the same
-generator, and ``compute_dtype`` (bfloat16) applies inside the backbone's
-blocks; the heads stay float32.
+order; the backbone (PTv3, or SpUNet for ``backbone_type="SP"``) over the
+means voxelised at grid_resolution; optional concat of the input features
+onto the backbone output; one ReLU MLP head per output attribute; residual
+('res': in + act(head)) or direct ('dc') outputs; attributes not predicted
+are copied through, padded slots untouched.
+
+With ``additional_info["downsample"]`` (fps, voxel, random) the backbone
+runs on a reduced point set (ops/downsample.py) and its outputs are mapped
+back to every point before the heads, which still see the full-resolution
+input features. Token merging (``additional_info["tome"]``) runs inside
+PTv3's blocks (models/ptv3.py).
+
+In training the four serialization orders of PTv3 are shuffled (a
+permutation drawn from the caller's generator, or given), DropPath draws
+from the same generator, as do random_patch merging and random
+downsampling (or they take injected draws), and ``compute_dtype``
+(bfloat16) applies inside PTv3's blocks; the heads stay float32.
 """
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional, Sequence
+from typing import Any, Dict, Iterable, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -23,8 +32,10 @@ from torch import nn
 from splatformer_tpu_torch.configs.model_ptv3_base import ModelConfig
 from splatformer_tpu_torch.device import resolve_device
 from splatformer_tpu_torch.models.point import make_point_batch
-from splatformer_tpu_torch.models.ptv3 import (Block, PointTransformerV3,
-                                               merging_requested)
+from splatformer_tpu_torch.models.ptv3 import PointTransformerV3
+from splatformer_tpu_torch.models.spunet import SpUNet
+from splatformer_tpu_torch.ops import merging
+from splatformer_tpu_torch.ops.downsample import downsample_dispatch
 from splatformer_tpu_torch.ops.serialization import ORDERS
 from splatformer_tpu_torch.ops.types import GaussianScene
 
@@ -59,6 +70,7 @@ class OutputHead(nn.Module):
 class FeaturePredictor(nn.Module):
     def __init__(
         self,
+        backbone_type: str = "PT",
         sh_degree: int = 1,
         input_features: Sequence[str] = ALL_FEATURES,
         output_features: Sequence[str] = ALL_FEATURES,
@@ -71,10 +83,13 @@ class FeaturePredictor(nn.Module):
         grid_resolution: int = 384,
         backbone_kwargs: Optional[Dict[str, Any]] = None,
         compute_dtype: Optional[torch.dtype] = None,
+        additional_info: Optional[Dict[str, Any]] = None,
     ):
         super().__init__()
         if output_features_type not in ("res", "dc"):
             raise ValueError(f"output_features_type {output_features_type!r}")
+        self.backbone_type = backbone_type
+        self.additional_info = dict(additional_info or {})
         self.sh_degree = sh_degree
         self.input_features = tuple(input_features)
         self.output_features = tuple(output_features)
@@ -85,9 +100,16 @@ class FeaturePredictor(nn.Module):
         self.grid_resolution = grid_resolution
         ch = feature_channels(sh_degree)
         in_ch = sum(ch[k] for k in self.input_features)
-        self.backbone = PointTransformerV3(in_channels=in_ch,
-                                           compute_dtype=compute_dtype,
-                                           **(backbone_kwargs or {}))
+        if backbone_type == "PT":
+            self.backbone = PointTransformerV3(
+                in_channels=in_ch, compute_dtype=compute_dtype,
+                additional_info=self.additional_info,
+                **(backbone_kwargs or {}))
+        elif backbone_type == "SP":
+            self.backbone = SpUNet(in_channels=in_ch,
+                                   **(backbone_kwargs or {}))
+        else:
+            raise NotImplementedError(f"backbone_type {backbone_type!r}")
         head_in = self.backbone.out_channels + (in_ch if input_feat_to_mlp
                                                 else 0)
         for f in self.output_features:
@@ -96,30 +118,66 @@ class FeaturePredictor(nn.Module):
 
     def forward(self, scene: GaussianScene,
                 generator: Optional[torch.Generator] = None,
-                order_perm: Optional[torch.Tensor] = None) -> GaussianScene:
+                order_perm: Optional[torch.Tensor] = None,
+                merge_scores: Optional[Iterable[torch.Tensor]] = None,
+                downsample_scores: Optional[torch.Tensor] = None
+                ) -> GaussianScene:
         """Refine ``scene``. In training, ``order_perm`` (a permutation of
-        the 4 orders) fixes the order shuffle, else it is drawn from
-        ``generator``, which DropPath also draws from; both are ignored in
-        evaluation."""
+        the 4 orders) fixes PTv3's order shuffle, else it is drawn from
+        ``generator``, which DropPath also draws from; random_patch merging
+        draws its block scores from it too, or takes them in call order
+        from ``merge_scores`` (one (B, H, blocks) tensor a merge: each
+        block's attention, then its MLP). ``downsample_scores`` (N,) fixes
+        random downsampling's scores in either mode; without it training
+        draws them from ``generator``, evaluation from a CPU generator
+        seeded 0. Evaluation draws nothing else."""
         mask = scene.valid_mask()
         n = scene.num_points
+        dev = mask.device
         feat = torch.cat([getattr(scene, k).reshape(n, -1)
                           for k in self.input_features], dim=1)
         feat = torch.where(mask[:, None], feat, torch.zeros_like(feat))
+
+        gdev = generator.device if generator is not None else None
+
+        def draw(shape):
+            return torch.rand(tuple(shape), generator=generator,
+                              device=gdev).to(dev)
+
+        info = self.additional_info
+        coord, feat_full, mask_ds, up = scene.means, feat, mask, None
+        if info.get("downsample"):
+            uniform = ((lambda shape: downsample_scores)
+                       if downsample_scores is not None
+                       else draw if self.training else None)
+            coord, feat, mask_ds, up = downsample_dispatch(
+                info["downsample"], info, coord, feat, mask, uniform)
+
         perm = None
-        if self.training:
+        if self.training and self.backbone_type == "PT":
             perm = order_perm
             if perm is None:
-                dev = generator.device if generator is not None else None
                 perm = torch.randperm(len(ORDERS), generator=generator,
-                                      device=dev)
-            perm = perm.to(device=mask.device, dtype=torch.int64)
-        pb = make_point_batch(scene.means, feat, mask,
+                                      device=gdev)
+            perm = perm.to(device=dev, dtype=torch.int64)
+        pb = make_point_batch(coord, feat, mask_ds,
                               grid_resolution=self.grid_resolution,
                               order_shuffle=perm)
-        y = self.backbone(pb, generator)
+        if self.backbone_type == "SP":
+            y = self.backbone(pb)
+        else:
+            uniform = None
+            if self.training and merging.needs_rng(info.get("tome"), info):
+                if merge_scores is not None:
+                    scores = iter(merge_scores)
+                    uniform = lambda shape: next(scores)  # noqa: E731
+                else:
+                    uniform = draw
+            y = self.backbone(pb, generator, uniform)
+        if up is not None:
+            y = up(y)  # the reduced set's outputs back on every point
         if self.input_feat_to_mlp:
-            y = torch.cat([y, feat], dim=1)
+            y = torch.cat([y, feat_full], dim=1)
 
         out = {}
         for f in self.output_features:
@@ -147,8 +205,10 @@ class FeaturePredictor(nn.Module):
 @torch.no_grad()
 def init_weights(model: FeaturePredictor, generator: torch.Generator,
                  zeroinit: bool = True, head_final_scale: float = 1.0) -> None:
-    """Seeded initialisation: every Linear and xCPE kernel normal with std
-    1/sqrt(fan_in), biases zero, norms at identity; each head's final layer
+    """Seeded initialisation: every Linear and every conv kernel (xCPE, the
+    PT_embedding stem, SpUNet's blocks: parameters ``*_kernel`` of shape
+    (27, Cin, Cout), with their ``*_bias``) normal with std 1/sqrt(fan_in),
+    biases zero, norms at identity; each head's final layer
     zero (``zeroinit``: step 0 is an identity refinement) or scaled by
     ``head_final_scale``. Drawn on the CPU, so a seed gives the same
     weights on every device."""
@@ -161,10 +221,12 @@ def init_weights(model: FeaturePredictor, generator: torch.Generator,
             normal_(mod.weight, mod.in_features)
             if mod.bias is not None:
                 mod.bias.zero_()
-        elif isinstance(mod, Block):
-            k, cin, _ = mod.cpe_conv_kernel.shape
-            normal_(mod.cpe_conv_kernel, k * cin)
-            mod.cpe_conv_bias.zero_()
+            continue
+        for name, param in mod.named_parameters(recurse=False):
+            if name.endswith("_kernel"):
+                normal_(param, param.shape[0] * param.shape[1])
+            elif name.endswith("_bias"):
+                param.zero_()
     for f in model.output_features:
         last = model.get_submodule(f"head_{f}").linears[-1]
         if zeroinit:
@@ -177,28 +239,20 @@ def build_feature_predictor(cfg: ModelConfig, device: str = "cuda",
                             seed: int = 0, head_final_scale: float = 1.0,
                             compute_dtype: Optional[str] = None
                             ) -> FeaturePredictor:
-    """FeaturePredictor from a ModelConfig, seeded, in eval mode, on
-    ``device``; ``compute_dtype="bfloat16"`` is the blocks' dtype in
-    training. Parts of the config the port does not run yet raise."""
+    """FeaturePredictor from a ModelConfig (any of the JAX package's model
+    configs: PTv3 with its merging and downsampling options, or SpUNet),
+    seeded, in eval mode, on ``device``; ``compute_dtype="bfloat16"`` is
+    PTv3's block dtype in training. Unknown values raise."""
     device = resolve_device(device)
-    b = cfg.backbone
-    unported = []
-    if cfg.backbone_type != "PT":
-        unported.append(f"backbone_type={cfg.backbone_type!r}")
     if cfg.output_head_type != "mlp-relu":
-        unported.append(f"output_head_type={cfg.output_head_type!r}")
-    if b.turn_off_bn:
-        unported.append("turn_off_bn")
-    if b.embedding_type != "MLP":
-        unported.append(f"embedding_type={b.embedding_type!r}")
-    if merging_requested(cfg.additional_info):
-        unported.append(f"token merging {cfg.additional_info.get('tome')!r}")
-    if cfg.additional_info.get("downsample"):
-        unported.append("input downsampling")
-    if unported:
         raise NotImplementedError(
-            "not ported yet (see ROADMAP.md): " + ", ".join(unported))
+            f"output_head_type={cfg.output_head_type!r}: only 'mlp-relu' "
+            "exists (the reference's sole head type)")
+    b = cfg.backbone
+    backbone_kwargs = (dict(cfg.sp_backbone) if cfg.backbone_type == "SP"
+                       else b.backbone_kwargs())
     model = FeaturePredictor(
+        backbone_type=cfg.backbone_type,
         sh_degree=cfg.sh_degree, input_features=cfg.input_features,
         output_features=cfg.output_features,
         input_feat_to_mlp=cfg.input_feat_to_mlp,
@@ -208,9 +262,10 @@ def build_feature_predictor(cfg: ModelConfig, device: str = "cuda",
         res_feature_activation=dict(cfg.res_feature_activation),
         max_scale_normalized=cfg.max_scale_normalized,
         grid_resolution=cfg.grid_resolution,
-        backbone_kwargs=b.backbone_kwargs(),
+        backbone_kwargs=backbone_kwargs,
         compute_dtype=(None if compute_dtype in (None, "float32")
-                       else getattr(torch, compute_dtype)))
+                       else getattr(torch, compute_dtype)),
+        additional_info=cfg.additional_info)
     init_weights(model, torch.Generator().manual_seed(seed),
                  zeroinit=cfg.zeroinit, head_final_scale=head_final_scale)
     return model.eval().to(device)

@@ -30,19 +30,26 @@ class MaskedBatchNorm(nn.Module):
     variance for normalising, unbiased for the running update, the count
     clamped at 1. Evaluation normalises with the running statistics.
     Parameters ``scale``/``bias`` and buffers ``mean``/``var`` keep the
-    JAX package's names; the output has the input's dtype."""
+    JAX package's names; the output has the input's dtype. ``off`` (the
+    ``turn_off_bn`` configurations) makes it the identity, with no
+    parameters or statistics."""
 
     def __init__(self, channels: int, eps: float = 1e-3,
-                 momentum: float = 0.01):
+                 momentum: float = 0.01, off: bool = False):
         super().__init__()
         self.eps = eps
         self.momentum = momentum
+        self.off = off
+        if off:
+            return
         self.scale = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("mean", torch.zeros(channels))
         self.register_buffer("var", torch.ones(channels))
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        if self.off:
+            return x
         in_dtype = x.dtype
         x = x.to(torch.float32)
         if self.training:

@@ -17,6 +17,16 @@ leaves the block in the block's input dtype. Evaluation is float32. Blocks
 are not rematerialised: the JAX package remats them only to fit a TPU
 v5e's 16 GB.
 
+Token merging (ops/merging.py, the ``additional_info`` of the
+``model_ptv3_*`` configs) runs inside the attention when ``tome_attention``
+holds, with the keys as the metric and the proportional-attention bias
+log(size) on the logits, at the reduced K' through the plain matmul-softmax
+(never K3: the JAX package's flash path falls back to its einsum there
+too); and, with ``tome_mlp``, as a second, independent merge of the
+serialized MLP input (one head). ``turn_off_bn`` makes every BatchNorm the
+identity; ``embedding_type="PT_embedding"`` is a 3^3 submanifold-conv stem
+in place of the Linear one.
+
 Module and parameter names follow the flax model's, so data/convert.py maps
 a JAX checkpoint one to one. LayerNorm eps is flax's 1e-6 and GELU is the
 tanh approximation, as flax's defaults.
@@ -35,6 +45,7 @@ from splatformer_tpu_torch.kernels.attention import FlashAttention
 from splatformer_tpu_torch.models.layers import (DropPath, MaskedBatchNorm,
                                                  Mlp, linear)
 from splatformer_tpu_torch.models.point import PointBatch
+from splatformer_tpu_torch.ops import merging
 from splatformer_tpu_torch.ops.segment_ops import (pad_order_for_patches,
                                                    segment_max, segment_mean)
 from splatformer_tpu_torch.ops.serialization import (INVALID_CODE, ORDERS,
@@ -59,21 +70,28 @@ class SerializedAttention(nn.Module):
     patch 1024) the attention is K3, ``FlashAttention`` over (B, H, K, d)
     with ``scale`` on the logits, as the JAX package's Pallas flash path;
     otherwise plain matmuls and softmax, as its einsum path, which XLA
-    computes outside any kernel."""
+    computes outside any kernel. Token merging in the attention
+    (``additional_info``) takes the plain path at the reduced K', with
+    log(size) added over the key axis, then unmerges the output."""
 
     def __init__(self, channels: int, num_heads: int, patch_size: int,
-                 order_index: int, use_flash: bool = False):
+                 order_index: int, use_flash: bool = False,
+                 additional_info: Optional[Dict[str, Any]] = None):
         super().__init__()
         self.num_heads = num_heads
         self.patch_size = patch_size
         self.order_index = order_index
         self.use_flash = use_flash
+        info = additional_info or {}
+        self.merge_info = (info if merging_requested(info)
+                           and info.get("tome_attention", True) else None)
         self.scale = (channels // num_heads) ** -0.5
         self.qkv = nn.Linear(channels, 3 * channels)
         self.proj = nn.Linear(channels, channels)
 
     def forward(self, feat: torch.Tensor, pb: PointBatch,
-                dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+                dtype: Optional[torch.dtype] = None,
+                uniform: Optional[merging.Uniform] = None) -> torch.Tensor:
         n, c = feat.shape
         k, h = self.patch_size, self.num_heads
         if n % k:
@@ -86,38 +104,58 @@ class SerializedAttention(nn.Module):
         qkv = linear(self.qkv, feat, dtype).index_select(0, order.long())
         qkv = qkv.reshape(n // k, k, 3, h, c // h)
         q, kk, v = qkv.permute(2, 0, 3, 1, 4).unbind(0)     # (B, H, K, ch)
-        if self.use_flash:
+        unmerge = None
+        if self.merge_info is not None:
+            info = self.merge_info
+            q, kk, v, size, unmerge = merging.process_merging(
+                info["tome"], q, kk, v, info, uniform)
+        if self.use_flash and unmerge is None:
             out = FlashAttention.apply(q, kk, v, self.scale)
         else:
             # logits and softmax in f32 (the JAX einsum's
             # preferred_element_type)
             attn = torch.matmul((q * self.scale).float(),
                                 kk.transpose(-1, -2).float())
+            if unmerge is not None:
+                # proportional attention over the keys: a key standing for
+                # s tokens gets +log(s); size 0 (ALGM's dead slots) masks it
+                attn = attn + torch.log(torch.clamp(
+                    size[..., 0], min=1e-30))[..., None, :]
             attn = torch.softmax(attn, dim=-1).to(v.dtype)
             out = torch.matmul(attn, v)
+        if unmerge is not None:
+            out = unmerge(out)                          # back to (B, H, K, ch)
         out = out.permute(0, 2, 1, 3).reshape(n, c).index_select(
             0, inverse.long())
         return linear(self.proj, out, dtype)
 
 
 class Block(nn.Module):
-    """xCPE + pre-LN attention + pre-LN MLP with droppath residuals."""
+    """xCPE + pre-LN attention + pre-LN MLP with droppath residuals; with
+    ``tome_mlp`` and merging requested, the MLP runs on the tokens of an
+    independent merge of its serialized input's patches (one head)."""
 
     def __init__(self, channels: int, num_heads: int, patch_size: int,
                  order_index: int, drop_path: float, mlp_ratio: float = 4.0,
                  compute_dtype: Optional[torch.dtype] = None,
-                 use_flash: bool = False):
+                 use_flash: bool = False, turn_off_bn: bool = False,
+                 additional_info: Optional[Dict[str, Any]] = None):
         super().__init__()
         c = channels
         self.compute_dtype = compute_dtype
+        self.patch_size = patch_size
+        self.order_index = order_index
+        info = additional_info or {}
+        self.mlp_merge_info = (info if merging_requested(info)
+                               and info.get("tome_mlp") else None)
         # (27, Cin, Cout) in conv_offsets' row-major order, as the JAX param
         self.cpe_conv_kernel = nn.Parameter(torch.empty(27, c, c))
         self.cpe_conv_bias = nn.Parameter(torch.zeros(c))
         self.cpe_linear = nn.Linear(c, c)
-        self.cpe_norm = MaskedBatchNorm(c)
+        self.cpe_norm = MaskedBatchNorm(c, off=turn_off_bn)
         self.norm1 = nn.LayerNorm(c, eps=LN_EPS)
         self.attn = SerializedAttention(c, num_heads, patch_size, order_index,
-                                        use_flash)
+                                        use_flash, additional_info)
         self.norm2 = nn.LayerNorm(c, eps=LN_EPS)
         self.mlp = Mlp(c, int(c * mlp_ratio), c)
         self.drop_path = DropPath(drop_path)
@@ -128,16 +166,38 @@ class Block(nn.Module):
                          norm.weight, norm.bias, norm.eps)
         return y.to(x.dtype)
 
+    def _merged_mlp(self, h: torch.Tensor, pb: PointBatch,
+                    dt: Optional[torch.dtype],
+                    uniform: Optional[merging.Uniform]) -> torch.Tensor:
+        """The MLP on merged tokens: gather by the padded order, merge each
+        patch (H = 1), MLP, unmerge, scatter back."""
+        n, c = h.shape
+        k, info = self.patch_size, self.mlp_merge_info
+        order = pad_order_for_patches(pb.order_perm[self.order_index],
+                                      pb.n_valid, k)
+        inverse = pb.inverse_perm[self.order_index]
+        hseq = h.index_select(0, order.long()).reshape(n // k, 1, k, c)
+        merge, unmerge, _ = merging.build_merge(info["tome"], hseq, info,
+                                                uniform)
+        tok = merge(hseq)
+        m = self.mlp(tok.reshape(-1, c), dt).reshape(tok.shape[:-1] + (-1,))
+        return unmerge(m).reshape(n, -1).index_select(0, inverse.long())
+
     def forward(self, pb: PointBatch, nbr: torch.Tensor,
-                generator: Optional[torch.Generator] = None) -> PointBatch:
+                generator: Optional[torch.Generator] = None,
+                uniform: Optional[merging.Uniform] = None) -> PointBatch:
         dt = self.compute_dtype if self.training else None
         feat = pb.feat if dt is None else pb.feat.to(dt)
         h = sparse_conv_apply(feat, nbr, self.cpe_conv_kernel.to(feat.dtype),
                               self.cpe_conv_bias.to(feat.dtype))
         feat = feat + self.cpe_norm(linear(self.cpe_linear, h, dt), pb.mask)
-        h = self.attn(self._layer_norm(self.norm1, feat), pb, dt)
+        h = self.attn(self._layer_norm(self.norm1, feat), pb, dt, uniform)
         feat = feat + self.drop_path(h, generator)
-        h = self.mlp(self._layer_norm(self.norm2, feat), dt)
+        h = self._layer_norm(self.norm2, feat)
+        if self.mlp_merge_info is not None:
+            h = self._merged_mlp(h, pb, dt, uniform)
+        else:
+            h = self.mlp(h, dt)
         feat = feat + self.drop_path(h, generator)
         return pb.replace(feat=feat.to(pb.feat.dtype))
 
@@ -147,11 +207,12 @@ class SerializedPooling(nn.Module):
     pooled PointBatch (capacity ``child_capacity``) and the cluster map
     (waste bucket = child_capacity) for unpooling."""
 
-    def __init__(self, in_channels: int, out_channels: int, stride: int):
+    def __init__(self, in_channels: int, out_channels: int, stride: int,
+                 turn_off_bn: bool = False):
         super().__init__()
         self.pooling_depth = max(0, int(math.ceil(math.log2(stride))))
         self.proj = nn.Linear(in_channels, out_channels)
-        self.norm = MaskedBatchNorm(out_channels)
+        self.norm = MaskedBatchNorm(out_channels, off=turn_off_bn)
 
     def forward(self, pb: PointBatch, child_capacity: int
                 ) -> Tuple[PointBatch, torch.Tensor]:
@@ -209,12 +270,12 @@ class SerializedUnpooling(nn.Module):
     projected skip; waste-bucket clusters contribute zero."""
 
     def __init__(self, in_channels: int, skip_channels: int,
-                 out_channels: int):
+                 out_channels: int, turn_off_bn: bool = False):
         super().__init__()
         self.proj = nn.Linear(in_channels, out_channels)
-        self.proj_norm = MaskedBatchNorm(out_channels)
+        self.proj_norm = MaskedBatchNorm(out_channels, off=turn_off_bn)
         self.proj_skip = nn.Linear(skip_channels, out_channels)
-        self.proj_skip_norm = MaskedBatchNorm(out_channels)
+        self.proj_skip_norm = MaskedBatchNorm(out_channels, off=turn_off_bn)
 
     def forward(self, child: PointBatch, parent: PointBatch,
                 cluster: torch.Tensor) -> PointBatch:
@@ -234,8 +295,9 @@ def _round_up(x: int, mult: int) -> int:
 
 
 class PointTransformerV3(nn.Module):
-    """The U-Net backbone with the MLP embedding (Linear -> BN -> GELU).
-    Defaults are PTv3-base's."""
+    """The U-Net backbone. The embedding is Linear -> BN -> GELU ("MLP") or
+    a 3^3 submanifold conv -> BN -> GELU ("PT_embedding"; the reference's
+    stem is 5^3, the JAX package's 3^3). Defaults are PTv3-base's."""
 
     def __init__(
         self,
@@ -254,6 +316,9 @@ class PointTransformerV3(nn.Module):
         pool_capacity_factors: Sequence[float] = (1.0, 0.75, 0.625, 0.5),
         compute_dtype: Optional[torch.dtype] = None,
         use_flash: bool = False,
+        turn_off_bn: bool = False,
+        embedding_type: str = "MLP",
+        additional_info: Optional[Dict[str, Any]] = None,
     ):
         super().__init__()
         num_stages = len(enc_depths)
@@ -270,35 +335,53 @@ class PointTransformerV3(nn.Module):
         enc_dp = [float(x) for x in np.linspace(0, drop_path, sum(enc_depths))]
         dec_dp = [float(x) for x in np.linspace(0, drop_path, sum(dec_depths))]
 
-        self.embed_linear = nn.Linear(in_channels, enc_channels[0])
-        self.embed_norm = MaskedBatchNorm(enc_channels[0])
+        self.embedding_type = embedding_type
+        if embedding_type == "MLP":
+            self.embed_linear = nn.Linear(in_channels, enc_channels[0])
+        elif embedding_type == "PT_embedding":
+            self.embed_conv_kernel = nn.Parameter(
+                torch.empty(27, in_channels, enc_channels[0]))
+            self.embed_conv_bias = nn.Parameter(torch.zeros(enc_channels[0]))
+        else:
+            raise NotImplementedError(f"embedding_type {embedding_type!r}")
+        self.embed_norm = MaskedBatchNorm(enc_channels[0], off=turn_off_bn)
+        block_kw = dict(mlp_ratio=mlp_ratio, compute_dtype=compute_dtype,
+                        use_flash=use_flash, turn_off_bn=turn_off_bn,
+                        additional_info=additional_info)
         for s in range(num_stages):
             if s > 0:
                 self.add_module(f"enc{s}_down", SerializedPooling(
-                    enc_channels[s - 1], enc_channels[s], stride[s - 1]))
+                    enc_channels[s - 1], enc_channels[s], stride[s - 1],
+                    turn_off_bn))
             dps = enc_dp[sum(enc_depths[:s]):sum(enc_depths[:s + 1])]
             for i in range(enc_depths[s]):
                 self.add_module(f"enc{s}_block{i}", Block(
                     enc_channels[s], enc_num_head[s], enc_patch_size[s],
-                    i % len(ORDERS), dps[i], mlp_ratio, compute_dtype,
-                    use_flash))
+                    i % len(ORDERS), dps[i], **block_kw))
         dec_ch = list(dec_channels) + [enc_channels[-1]]
         for s in reversed(range(num_stages - 1)):
             self.add_module(f"dec{s}_up", SerializedUnpooling(
-                dec_ch[s + 1], enc_channels[s], dec_ch[s]))
+                dec_ch[s + 1], enc_channels[s], dec_ch[s], turn_off_bn))
             dps = dec_dp[sum(dec_depths[:s]):sum(dec_depths[:s + 1])][::-1]
             for i in range(dec_depths[s]):
                 self.add_module(f"dec{s}_block{i}", Block(
                     dec_ch[s], dec_num_head[s], dec_patch_size[s],
-                    i % len(ORDERS), dps[i], mlp_ratio, compute_dtype,
-                    use_flash))
+                    i % len(ORDERS), dps[i], **block_kw))
 
     def forward(self, pb: PointBatch,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                uniform: Optional[merging.Uniform] = None) -> torch.Tensor:
+        """``generator`` drives DropPath; ``uniform`` draws random_patch's
+        block scores (training only; None takes the blocks in order)."""
         num_stages = len(self.enc_depths)
+        # stage 0's conv structure, shared by a PT_embedding stem
         nbr0 = build_neighbor_map(pb.grid_coord, pb.mask)
-        h = F.gelu(self.embed_norm(self.embed_linear(pb.feat), pb.mask),
-                   approximate="tanh")
+        if self.embedding_type == "MLP":
+            h = self.embed_linear(pb.feat)
+        else:
+            h = sparse_conv_apply(pb.feat, nbr0, self.embed_conv_kernel,
+                                  self.embed_conv_bias)
+        h = F.gelu(self.embed_norm(h, pb.mask), approximate="tanh")
         pb = pb.replace(feat=h)
 
         skips, clusters, stage_nbrs = [], [], []
@@ -320,12 +403,12 @@ class PointTransformerV3(nn.Module):
                                                          pb.mask)
             stage_nbrs.append(nbr)
             for i in range(self.enc_depths[s]):
-                pb = self.get_submodule(f"enc{s}_block{i}")(pb, nbr,
-                                                            generator)
+                pb = self.get_submodule(f"enc{s}_block{i}")(
+                    pb, nbr, generator, uniform)
 
         for s in reversed(range(num_stages - 1)):
             pb = self.get_submodule(f"dec{s}_up")(pb, skips[s], clusters[s])
             for i in range(self.dec_depths[s]):
                 pb = self.get_submodule(f"dec{s}_block{i}")(
-                    pb, stage_nbrs[s], generator)
+                    pb, stage_nbrs[s], generator, uniform)
         return pb.feat

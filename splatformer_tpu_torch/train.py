@@ -16,10 +16,15 @@
     python -m splatformer_tpu_torch.train --only_eval --output_dir output/smoke \\
         --compare_with_input
 
+    # eval-only with token merging at another rate (CLI beats config); the
+    # merging and downsampling configs add no parameter, so a ptv3_base run
+    # serves them all
+    python -m splatformer_tpu_torch.train --model ptv3_tome --merge_rate 0.5 \\
+        --only_eval --output_dir output/smoke
+
 Runs on the card unless ``--cpu`` is given; without ``--cpu`` and without a
-card it exits with status 1. Not ported yet, refused by name (ROADMAP.md
-queue 1): ``--save_viewer``, and a ``--merge_rate`` other than the model
-config's (token merging).
+card it exits with status 1. ``--save_viewer`` is not ported yet and is
+refused by name (ROADMAP.md queue 1 item 5).
 """
 from __future__ import annotations
 
@@ -84,10 +89,6 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     cfg = build_full_config(args.model, args.dataset, args.train_config,
                             args.override)
     if args.merge_rate is not None:
-        if args.merge_rate != cfg.model.additional_info.get("r", 0.0):
-            raise NotImplementedError(
-                f"--merge_rate {args.merge_rate}: token merging is not "
-                "ported yet (ROADMAP.md queue 1 item 4)")
         cfg.model.additional_info["r"] = args.merge_rate
 
     os.makedirs(args.output_dir, exist_ok=True)

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Callable, Dict, Optional, Sequence, Tuple
+from typing import Callable, Dict, Iterable, Optional, Sequence, Tuple
 
 import torch
 
@@ -70,10 +70,13 @@ def make_train_step(model: FeaturePredictor, optimizer: ChainOptimizer,
                     pretrain: bool = False,
                     pretrain_attrs: Sequence[str] = PRETRAIN_ATTRS,
                     ) -> Callable[..., Dict[str, torch.Tensor]]:
-    """Returns step(batch, generator=None, order_perm=None) -> metrics.
+    """Returns step(batch, generator=None, order_perm=None,
+    merge_scores=None, downsample_scores=None) -> metrics.
 
-    The generator (on the batch's device) drives DropPath and the order
-    shuffle; ``order_perm`` fixes the shuffle. Metrics, as 0-d tensors:
+    The generator (on the batch's device) drives DropPath, the order
+    shuffle, random_patch merging and random downsampling; ``order_perm``,
+    ``merge_scores`` and ``downsample_scores`` fix those draws instead
+    (FeaturePredictor.forward). Metrics, as 0-d tensors:
     ``total_loss``; with rendering ``image_l1``, ``train_psnr``,
     ``num_dropped`` and, when LPIPS is on, ``lpips``; with ``pretrain``
     (per-attribute L1 of the refined against the input attributes over
@@ -85,11 +88,14 @@ def make_train_step(model: FeaturePredictor, optimizer: ChainOptimizer,
         lpips.requires_grad_(False)
 
     def step(batch: SceneBatch, generator: Optional[torch.Generator] = None,
-             order_perm: Optional[torch.Tensor] = None
+             order_perm: Optional[torch.Tensor] = None,
+             merge_scores: Optional[Iterable[torch.Tensor]] = None,
+             downsample_scores: Optional[torch.Tensor] = None
              ) -> Dict[str, torch.Tensor]:
         model.train()
         optimizer.zero_grad()
-        refined = model(batch.scene, generator, order_perm)
+        refined = model(batch.scene, generator, order_perm, merge_scores,
+                        downsample_scores)
         metrics = {}
         if pretrain:
             mask = batch.scene.valid_mask()

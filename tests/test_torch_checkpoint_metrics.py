@@ -351,8 +351,10 @@ def test_eval_csv_schemas(tmp_path):
 def test_train_cli_on_cpu(tmp_path, monkeypatch):
     """Two steps of the tiny configuration through the CLI, then eval-only
     from checkpoints_best with the input compared: the run's files and
-    the eval.csv rows (in the working directory, as the root train.py).
-    Without --cpu and without a card the CLI exits 1."""
+    the eval.csv rows (in the working directory, as the root train.py);
+    then eval-only of the same checkpoint as ptv3_tome with --merge_rate
+    0.5, which appends a tome row at r 0.5. Without --cpu and without a
+    card the CLI exits 1."""
     monkeypatch.chdir(tmp_path)
     lp = str(tmp_path / "lpips.npz")
     write_synthetic_weights(lp)
@@ -376,8 +378,12 @@ def test_train_cli_on_cpu(tmp_path, monkeypatch):
     assert all(np.isfinite(float(x)) for x in rows[1][1:4])
     assert rows[1][4:] == ["base", "0.0", "0.0"]
     assert os.path.exists("run/final/synthetic/metrics_input.rank0.json")
-    with pytest.raises(NotImplementedError, match="item 4"):
-        train_cli.main(args + ["--merge_rate", "0.5"])
+    assert train_cli.main(args + ["--only_eval", "--model", "ptv3_tome",
+                                  "--merge_rate", "0.5"]) == 0
+    with open("eval.csv") as f:
+        rows = [line.strip().split(",") for line in f]
+    assert len(rows) == 3 and rows[2][4:] == ["tome", "0.5", "0.0"]
+    assert all(np.isfinite(float(x)) for x in rows[2][1:4])
     with pytest.raises(NotImplementedError, match="item 5"):
         train_cli.main(args + ["--save_viewer"])
     if not torch.cuda.is_available():

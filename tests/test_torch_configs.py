@@ -86,9 +86,9 @@ def test_unknown_field_raises(bad):
         apply_overrides(build_full_config(), [bad])
 
 
-@pytest.mark.parametrize("kind,name", [("model", "ptv3_tome"),
-                                       ("model", "spunet"),
-                                       ("model", "ptv3_voxel"),
+@pytest.mark.parametrize("kind,name", [("model", "ptv3_no_such"),
+                                       ("model", "no_such_model"),
+                                       ("train", "no_such_recipe"),
                                        ("dataset", "no_such_set")])
 def test_unported_config_raises(kind, name):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -98,3 +98,26 @@ def test_unported_config_raises(kind, name):
 def test_config_file_path_names_resolve():
     assert load_config("model", "configs/model/ptv3_base.py") == load_config(
         "model", "ptv3_base")
+
+
+MODEL_VARIANTS = ["ptv3_algm", "ptv3_drop", "ptv3_fps", "ptv3_patch",
+                  "ptv3_pitome", "ptv3_prune", "ptv3_tofu", "ptv3_tome",
+                  "ptv3_voxel", "ptv3_wpatch", "spunet"]
+
+
+@pytest.mark.parametrize("name", MODEL_VARIANTS)
+def test_model_variant_matches_jax(name):
+    """Every JAX model config loads in the port and equals the JAX one
+    field by field (additional_info's merging and downsampling keys,
+    spunet's backbone_type and sp_backbone), in the full config beside the
+    synthetic dataset and the default recipe."""
+    j = _flat(jax_full_config(name, "synthetic", "default").to_dict())
+    p = _flat(dataclasses.asdict(build_full_config(name, "synthetic",
+                                                   "default")))
+    assert set(p) - set(j) == {"dataset.num_workers"}
+    assert set(j) <= set(p), sorted(set(j) - set(p))
+    for k in j:
+        assert p[k] == j[k], (k, p[k], j[k])
+    info = load_config("model", name).additional_info
+    assert (info["tome"] != "base") + bool(info.get("downsample")) + (
+        name == "spunet") == 1
