@@ -74,6 +74,31 @@ Phases, each printing one JSON line:
             merges and the map-back), after a warm-up each: finite losses,
             K1 and K2 once a step; with serving_merge*, the kernels line's
             ``merge_launches``;
+  diagnostics  PTv3-base at full width (heads x0.01) on a 100k-Gaussian
+            request: two plain forwards and one with diagnostics and
+            attention capture on, all three refined scenes bit-identical;
+            enc0_n_valid the live count, every stage count within its
+            capacity; the per-head replay (utils/attn_replay.py) of
+            enc0_block0, the deepest encoder block and dec0_block1 against
+            the recorded attention within 1e-4 of its largest magnitude;
+            the replay's ms a block, the captured MB; K3 never;
+  diagnostics_flash  the same with enable_flash (patch 1024): the recorded
+            attention is K3-fwd's float32 output, 22 launches;
+  flops     the port's calflops in this process: ptv3_base and the seven
+            merging configs at r 0.5 (2 scenes of 16,384 Gaussians) and the
+            65,536-Gaussian base_65k anchor, each row equal to gflops.csv's
+            by (algo, r) within 1e-9 relative; MLP GFLOPs,
+            torch_flop_counter_gflops, ms a forward, the effective-token
+            ratio of the merging ones; then an enable_flash base run (its
+            analytic count at patch 1024, K3-fwd 22 launches a forward);
+  viewer    training/loop.py:evaluation(save_viewer=True) on two 100k
+            scenes with PTv3-base: each scene's iteration_0 and iteration_1
+            PLYs equal the input's and the refined forward's live
+            parameters exactly, viewer.html holds N x 3 points a cloud, K1
+            once a scene (the refined render); then ``python -m splatformer_tpu_torch.visualize``
+            at its defaults in its own process (20 clouds, index.html,
+            viewer.html); with diagnostics*, flops, the kernels line's
+            ``diag_launches``;
   train_reference  a tiny model (drop_path 0, a fixed order shuffle,
             LPIPS from seeded random weights) on the card against the CPU:
             2 f32 SGD steps, each from the same state (losses, every
@@ -148,7 +173,7 @@ Phases, each printing one JSON line:
             line parses, with bench.py's keys, positive rates and the
             card's name and power limit.
 Launch counts are reset at the start of each phase and checked per phase.
-Then the smoke's total seconds (and the merge phases' share), the
+Then the smoke's total seconds (and the merge and diag phases' shares), the
 {"kernels": [...]} line, the card's name and power limit, and as
 the last line {"ok": true, "device": {...}}. Any failure raises and exits
 non-zero; without a CUDA device it exits 1 before any phase.
@@ -1201,6 +1226,315 @@ def phase_training_merge(requests):
     return totals
 
 
+# ---------------------------------------------------------------------------
+# the backbone's diagnostics and the tools that read them
+# ---------------------------------------------------------------------------
+
+DIAG_REPLAY_TOL = 1e-4   # of the block's largest magnitude (the JAX rtol)
+FLOPS_DIR = "build/chip_smoke_flops"
+FLOPS_RTOL = 1e-9
+FLOPS_N = 16_384
+FLOPS_ANCHOR_N = 65_536
+FLOPS_ALGOS = ("tome", "pitome", "tofu", "prune", "patch", "wpatch", "algm")
+VIEWER_DIR = "build/chip_smoke_viewer"
+VIEWER_SCENES = 2
+VISUALIZE_DIR = "build/chip_smoke_visualize"
+
+
+def unique_mb(records):
+    """MB held by the recorded tensors, each storage counted once (the
+    orders' inverses and the coordinates are views shared by blocks)."""
+    seen = {}
+    for rec in records.values():
+        for t in rec.values():
+            s = t.untyped_storage()
+            seen[s.data_ptr()] = s.nbytes()
+    return sum(seen.values()) / 1e6
+
+
+def phase_diagnostics(flash=False):
+    """PTv3-base at full width (heads x0.01) on a 100k-Gaussian request
+    (padded to 100352), at patch 128 or with enable_flash (patch 1024):
+    a plain forward twice, then one with diagnostics and attention capture
+    on. Fails unless the three refined scenes are bit-identical,
+    enc0_n_valid is the live count, every stage count is at most its
+    capacity, the per-head replay of enc0_block0, the deepest encoder block
+    and dec0_block1, concatenated over heads, equals the recorded attn_feat
+    within DIAG_REPLAY_TOL of its largest magnitude (on the flash run:
+    K3-fwd's float32 output against plain products), and the recorded
+    forward launched K3-fwd 22 times (flash) or never, K1 and K2 never.
+    Returns that forward's launches."""
+    from splatformer_tpu_torch.configs.model_ptv3_base import get_config
+    from splatformer_tpu_torch.kernels import LAUNCHES, reset_launches
+    from splatformer_tpu_torch.models.feature_predictor import (
+        ALL_FEATURES, build_feature_predictor)
+    from splatformer_tpu_torch.models.ptv3 import capture_attention
+    from splatformer_tpu_torch.utils.attn_replay import (head_count_for,
+                                                         replay_block,
+                                                         with_qkv)
+    name = "diagnostics_flash" if flash else "diagnostics"
+    cfg = get_config()
+    cfg.zeroinit = False
+    cfg.backbone.enable_flash = flash
+    model = build_feature_predictor(cfg, device="cuda", seed=0,
+                                    head_final_scale=0.01)
+    bk = cfg.backbone.backbone_kwargs()
+    scene = make_request(500 + flash, SCENE_PAD, SCENE_N, VIEWS, HW,
+                         "cuda").scene
+    with torch.inference_mode():
+        plain = model(scene)
+        again = model(scene)
+        torch.cuda.synchronize()
+        diag = {}
+        reset_launches()
+        t0 = time.perf_counter()
+        with capture_attention(model) as raw:
+            recorded = model(scene, diagnostics=diag)
+        torch.cuda.synchronize()
+        forward_ms = (time.perf_counter() - t0) * 1e3
+        launches = dict(LAUNCHES)
+    recs = with_qkv(model, raw)
+    identical = {k: bool(torch.equal(getattr(plain, k), getattr(again, k))
+                         and torch.equal(getattr(plain, k),
+                                         getattr(recorded, k)))
+                 for k in ALL_FEATURES}
+    n_stages = len(bk["enc_depths"])
+    counts, capacity = {}, {}
+    for s in range(n_stages):
+        counts[f"enc{s}"] = int(diag[f"enc{s}_n_valid"])
+        capacity[f"enc{s}"] = recs[f"backbone/enc{s}_block0/attn"][
+            "attn_in"].shape[0]
+    for key, d in diag["intermediates"].items():
+        counts[key] = int(d["n_valid"])
+        capacity[key] = d["feat"].shape[0]
+    deepest = f"enc{n_stages - 1}_block{bk['enc_depths'][-1] - 1}"
+    replays = {}
+    for block in ("enc0_block0", deepest, "dec0_block1"):
+        path = f"backbone/{block}/attn"
+        rec = recs[path]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rep = replay_block(rec, head_count_for(path, bk),
+                           bk["enc_patch_size"][0])
+        ms = (time.perf_counter() - t0) * 1e3
+        got = np.concatenate(rep["attn_feats"], axis=1)
+        want = rec["attn_feat"].cpu().numpy()
+        replays[block] = {
+            "ms": ms, "rows": int(want.shape[0]),
+            "heads": len(rep["attn_feats"]),
+            "max_abs_err": float(np.abs(got - want).max()),
+            "max_abs": float(np.abs(want).max())}
+    result = {"phase": name, "patch": bk["enc_patch_size"][0],
+              "gaussians": SCENE_N, "pad": SCENE_PAD, "blocks": len(recs),
+              "forward_ms_recorded": forward_ms,
+              "capture_mb": unique_mb(recs), "stage_counts": counts,
+              "stage_capacity": capacity, "identical": identical,
+              "replays": replays, "launches": launches}
+    emit(result)
+    if not all(identical.values()):
+        raise AssertionError(f"{name}: recording changed the refined scene")
+    if counts["enc0"] != SCENE_N or any(counts[k] > capacity[k]
+                                        for k in counts):
+        raise AssertionError(f"{name}: stage counts {counts} "
+                             f"(capacity {capacity})")
+    for block, r in replays.items():
+        if not r["max_abs_err"] <= DIAG_REPLAY_TOL * r["max_abs"]:
+            raise AssertionError(f"{name}: the replay of {block} disagrees "
+                                 f"with the recorded attention: {r}")
+    expected = {"composite_fwd": 0, "composite_bwd": 0,
+                "attention_fwd": K3_BLOCKS if flash else 0,
+                "attention_bwd": 0}
+    if launches != expected or len(recs) != K3_BLOCKS:
+        raise AssertionError(f"{name} launched {launches}, want {expected} "
+                             f"({len(recs)} blocks recorded)")
+    return launches
+
+
+def read_gflops_csv(path):
+    """{(algo, r): gflops} of a CSV in gflops.csv's schema."""
+    rows = {}
+    with open(path) as f:
+        next(f)
+        for line in f:
+            g, algo, r = line.strip().split(",")
+            rows[(algo, float(r))] = float(g)
+    return rows
+
+
+def phase_flops():
+    """The port's calflops in this process on the card: ptv3_base and each
+    of FLOPS_ALGOS at r 0.5 on 2 scenes of 16,384 Gaussians, and the
+    65,536-Gaussian base_65k anchor on one; each row against the repo's
+    gflops.csv by (algo, r) within FLOPS_RTOL relative; then one
+    enable_flash base run on one scene (its forward and the flop counter's
+    each launch K3-fwd 22 times). Returns the flash run's launches."""
+    import shutil
+
+    from splatformer_tpu_torch import calflops
+    from splatformer_tpu_torch.kernels import LAUNCHES, reset_launches
+    want = read_gflops_csv("gflops.csv")
+    shutil.rmtree(FLOPS_DIR, ignore_errors=True)
+    csv = os.path.join(FLOPS_DIR, "gflops.csv")
+
+    def run(n, scenes, *extra):
+        args = calflops.parse_args(
+            ["--num_scenes", str(scenes), "--csv", csv,
+             "--override", f"dataset.n_gaussians={n}",
+             "--override", f"dataset.pad_to={n}", *extra])
+        return calflops.run(args, torch.device("cuda"))
+
+    results = []
+    t0 = time.perf_counter()
+    results.append(run(FLOPS_N, 2))
+    for algo in FLOPS_ALGOS:
+        results.append(run(FLOPS_N, 2, "--model", f"ptv3_{algo}",
+                           "--merge_rate", "0.5"))
+    results.append(run(FLOPS_ANCHOR_N, 1, "--label", "base_65k"))
+    seconds = time.perf_counter() - t0
+    got = read_gflops_csv(csv)
+    rows = []
+    for res in results:
+        key = (res["algo"], float(res["r"]))
+        rel = abs(got[key] - want[key]) / want[key]
+        rows.append({"algo": key[0], "r": key[1], "gflops": got[key],
+                     "gflops_csv": want[key], "rel_err": rel,
+                     "mlp_gflops": res["mlp_gflops"],
+                     "torch_flop_counter_gflops":
+                         res["torch_flop_counter_gflops"],
+                     "forward_ms": res["forward_ms"],
+                     "token_ratio": res.get("token_ratio")})
+    shutil.rmtree(FLOPS_DIR, ignore_errors=True)
+    reset_launches()
+    flash = run(FLOPS_N, 1, "--override", "model.backbone.enable_flash=True",
+                "--label", "base_flash")
+    launches = dict(LAUNCHES)
+    emit({"phase": "flops", "seconds": seconds, "rows": rows,
+          "flash": {"gflops": flash["gflops"],
+                    "torch_flop_counter_gflops":
+                        flash["torch_flop_counter_gflops"],
+                    "forward_ms": flash["forward_ms"],
+                    "k3_launches_per_forward":
+                        launches["attention_fwd"] / 2},
+          "launches": launches})
+    bad = [r for r in rows if not r["rel_err"] <= FLOPS_RTOL]
+    if bad or len(rows) != len(FLOPS_ALGOS) + 2:
+        raise AssertionError(f"flops rows differ from gflops.csv: {bad}")
+    expected = {"composite_fwd": 0, "composite_bwd": 0,
+                "attention_fwd": 2 * K3_BLOCKS, "attention_bwd": 0}
+    if launches != expected:
+        raise AssertionError(f"flops (flash) launched {launches}, want "
+                             f"{expected}")
+    return launches
+
+
+def ply_fields(scene, mask):
+    """The Inria PLY fields of a scene's live Gaussians (zero normals,
+    features_rest colour-major, as utils/viewer.py writes them)."""
+    g = {k: getattr(scene, k).float().cpu().numpy()[mask]
+         for k in ("means", "scales", "quats", "opacities", "features_dc",
+                   "features_rest")}
+    n = g["means"].shape[0]
+    rest = g["features_rest"].transpose(0, 2, 1).reshape(n, -1)
+    fields = {ax: g["means"][:, i] for i, ax in enumerate("xyz")}
+    fields.update({ax: np.zeros(n, np.float32) for ax in ("nx", "ny", "nz")})
+    fields.update({f"f_dc_{i}": g["features_dc"][:, i] for i in range(3)})
+    fields.update({f"f_rest_{i}": rest[:, i] for i in range(rest.shape[1])})
+    fields["opacity"] = g["opacities"].reshape(n)
+    fields.update({f"scale_{i}": g["scales"][:, i] for i in range(3)})
+    fields.update({f"rot_{i}": g["quats"][:, i] for i in range(4)})
+    return fields
+
+
+def phase_viewer():
+    """training/loop.py:evaluation(save_viewer=True) with PTv3-base (heads
+    x0.01) on VIEWER_SCENES requests of 100k Gaussians x 4 views at 256^2:
+    each scene's iteration_0 PLY equals the input's live parameters and
+    iteration_1 the refined forward's, exactly (read back with read_ply),
+    the vertex count is the live count, viewer.html decodes to N x 3
+    floats a cloud, cameras.json has the views; K1 launched once a scene
+    (the refined render: the viewer export reads no image, so the input is
+    not rendered). Then ``python -m
+    splatformer_tpu_torch.visualize`` at its defaults in its own process:
+    its clouds, index.html and viewer.html. Returns evaluation's
+    launches."""
+    import base64
+    import shutil
+
+    from splatformer_tpu_torch.configs.model_ptv3_base import get_config
+    from splatformer_tpu_torch.kernels import LAUNCHES, reset_launches
+    from splatformer_tpu_torch.models.feature_predictor import (
+        build_feature_predictor)
+    from splatformer_tpu_torch.ops.types import RasterizeConfig
+    from splatformer_tpu_torch.training.loop import evaluation
+    from splatformer_tpu_torch.utils.viewer import read_ply
+    cfg = get_config()
+    cfg.zeroinit = False
+    model = build_feature_predictor(cfg, device="cuda", seed=0,
+                                    head_final_scale=0.01)
+    scenes = [(f"scene{i}", make_request(600 + i, SCENE_PAD, SCENE_N, VIEWS,
+                                         HW, "cuda"))
+              for i in range(VIEWER_SCENES)]
+    shutil.rmtree(VIEWER_DIR, ignore_errors=True)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    metrics, _, _ = evaluation(model, scenes, RasterizeConfig(), VIEWER_DIR,
+                               save_viewer=True)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    checks = []
+    for name, batch in scenes:
+        vdir = os.path.join(VIEWER_DIR, "viewer", name)
+        mask = batch.scene.valid_mask().cpu().numpy()
+        with torch.inference_mode():
+            refined = model(batch.scene)
+        row = {"scene": name}
+        for it, src in (("iteration_0", batch.scene), ("iteration_1",
+                                                       refined)):
+            got = read_ply(os.path.join(vdir, "point_cloud", it,
+                                        "point_cloud.ply"))
+            want = ply_fields(src, mask)
+            row[it] = {"vertices": int(len(got["x"])),
+                       "exact": list(got) == list(want) and all(
+                           np.array_equal(got[k], want[k]) for k in want)}
+        with open(os.path.join(vdir, "viewer.html")) as f:
+            data = json.loads(re.search(r"const DATA = (\[.*?\]);", f.read(),
+                                        re.S).group(1))
+        row["viewer_points"] = [
+            len(base64.b64decode(d["pos"])) // 12 for d in data]
+        with open(os.path.join(vdir, "cameras.json")) as f:
+            row["cameras"] = len(json.load(f))
+        row["moved"] = float((refined.means - batch.scene.means).abs().max())
+        checks.append(row)
+    emit({"phase": "viewer", "seconds": seconds, "scenes": checks,
+          "psnr": metrics.get("psnr"), "launches": launches})
+    for row in checks:
+        if not (row["iteration_0"]["exact"] and row["iteration_1"]["exact"]
+                and row["iteration_0"]["vertices"] == SCENE_N
+                and row["viewer_points"] == [SCENE_N, SCENE_N]
+                and row["cameras"] == VIEWS and row["moved"] > 0):
+            raise AssertionError(f"viewer export: {row}")
+    expected = {"composite_fwd": VIEWER_SCENES, "composite_bwd": 0,
+                "attention_fwd": 0, "attention_bwd": 0}
+    if launches != expected:
+        raise AssertionError(f"viewer launched {launches}, want {expected}")
+
+    shutil.rmtree(VISUALIZE_DIR, ignore_errors=True)
+    out, vis_seconds = run_module("splatformer_tpu_torch.visualize",
+                                  ["--out", VISUALIZE_DIR], timeout=300)
+    files = sorted(os.listdir(VISUALIZE_DIR))
+    plys = [f for f in files if f.endswith(".ply")]
+    emit({"phase": "visualize", "seconds": vis_seconds, "files": len(files),
+          "clouds": len(plys), "stdout_tail": out[-400:]})
+    # 4 algorithms x 2 heads of enc0_block0: the PCA clouds, and for the 3
+    # merging ones a diff and a merge-group cloud each
+    if not (len(plys) == 20 and "index.html" in files
+            and "viewer.html" in files):
+        raise AssertionError(f"visualize wrote {files}")
+    return launches
+
+
 def train_delta_check(init, got, ref):
     """Parameter updates of two runs from one ``init`` state_dict: each
     tensor's update within 2e-3 of its largest plus 5e-4 of the model's
@@ -1438,12 +1772,13 @@ def phase_train_reference_flash():
 
 
 def k3_entry(name, source, replaces, launches, totals, merge_launches,
-             serving_launches=None):
+             diag_launches, serving_launches=None):
     """The kernels line's entry of a K3 kernel: its sums over one forward
     pass's launches in bfloat16, the train step's type; with
     ``serving_launches`` also, under "float32", the same for float32, the
     serving path's type, with that path's launches; ``merge_launches``
-    those of the merge phases."""
+    those of the merge phases, ``diag_launches`` those of the diagnostics,
+    flops and viewer phases."""
     def sums(t):
         return {"max_abs_err": t["max_abs_err"], "ms": t["ms"],
                 "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
@@ -1451,6 +1786,7 @@ def k3_entry(name, source, replaces, launches, totals, merge_launches,
     entry = {"name": name, "route": "cuda", "source": source,
              "replaces": replaces, "launches": launches[name],
              "merge_launches": merge_launches[name],
+             "diag_launches": diag_launches[name],
              **sums(totals["bfloat16"]),
              "per": f"one forward pass: {K3_BLOCKS} launches, bfloat16"}
     if serving_launches is not None:
@@ -2178,6 +2514,15 @@ def main():
             merge_launches[k] += totals[k]
     del merge_requests
     merge_seconds += time.perf_counter() - t_merge
+    torch.cuda.empty_cache()
+    t_diag = time.perf_counter()
+    diag_launches = phase_diagnostics()
+    for totals in (phase_diagnostics(flash=True), phase_flops(),
+                   phase_viewer()):
+        torch.cuda.empty_cache()
+        for k in diag_launches:
+            diag_launches[k] += totals[k]
+    diag_seconds = time.perf_counter() - t_diag
     phase_train_reference()
     phase_train_reference_flash()
     torch.cuda.empty_cache()
@@ -2194,7 +2539,8 @@ def main():
     torch.cuda.empty_cache()  # the bench's own process needs ~40 GB
     phase_bench()
     emit({"phase": "total", "seconds": time.perf_counter() - t_start,
-          "merge_phases_seconds": merge_seconds})
+          "merge_phases_seconds": merge_seconds,
+          "diag_phases_seconds": diag_seconds})
     flash_src = "jax/experimental/pallas/ops/tpu/flash_attention.py"
     emit({"kernels": [{
         "name": "composite_fwd", "route": "cuda",
@@ -2204,6 +2550,7 @@ def main():
         "loop_launches": loop_launches["composite_fwd"],
         "fit_launches": fit_launches["composite_fwd"],
         "merge_launches": merge_launches["composite_fwd"],
+        "diag_launches": diag_launches["composite_fwd"],
         "max_abs_err": max(k1["max_abs_err_rgb"], k1["max_abs_err_T"]),
         "ms": k1["ms"], "plain_ms": k1["plain_ms"],
         "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
@@ -2215,6 +2562,7 @@ def main():
         "loop_launches": loop_launches["composite_bwd"],
         "fit_launches": fit_launches["composite_bwd"],
         "merge_launches": merge_launches["composite_bwd"],
+        "diag_launches": diag_launches["composite_bwd"],
         "max_abs_err": k2["max_abs_err"],
         "ms": k2["ms"], "plain_ms": k2["plain_ms"],
         "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
@@ -2223,12 +2571,12 @@ def main():
                  "splatformer_tpu_torch/csrc/attention_fwd.cu",
                  f"{flash_src}:342 (called at "
                  "splatformer_tpu/models/ptv3.py:118)", launches, k3,
-                 merge_launches, serving_flash),
+                 merge_launches, diag_launches, serving_flash),
         k3_entry("attention_bwd",
                  "splatformer_tpu_torch/csrc/attention_bwd.cu",
                  f"{flash_src}:796 and :1146 (called at "
                  "splatformer_tpu/models/ptv3.py:118)", launches, k3_bwd,
-                 merge_launches)]})
+                 merge_launches, diag_launches)]})
     smi = subprocess.run(
         ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],

@@ -12,9 +12,8 @@ prepare_data).
         --out cache/scene0.npz --steps 4000
 
 Runs on the card unless ``--cpu`` is given; without ``--cpu`` and without a
-card it exits with status 1. ``--ply`` (the viewer export,
-utils/viewer.py) is not ported yet and is refused by name (ROADMAP.md
-queue 1 item 5).
+card it exits with status 1. ``--ply`` also writes the live Gaussians as
+an Inria-format PLY for the SIBR or a web 3DGS viewer (utils/viewer.py).
 """
 from __future__ import annotations
 
@@ -32,7 +31,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     ap.add_argument("--colmap", required=True,
                     help="scene dir with images/ and sparse/0")
     ap.add_argument("--out", required=True, help="output scene npz")
-    ap.add_argument("--ply", default=None, help="viewer PLY path (not ported)")
+    ap.add_argument("--ply", default=None,
+                    help="also write an Inria-format viewer PLY here")
     ap.add_argument("--steps", type=int, default=4000)
     ap.add_argument("--capacity", type=int, default=2 ** 17)
     ap.add_argument("--sh_degree", type=int, default=1)
@@ -43,9 +43,6 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     ap.add_argument("--cpu", action="store_true",
                     help="run on the CPU (the kernels' plain versions)")
     args = ap.parse_args(argv)
-    if args.ply:
-        raise NotImplementedError("--ply (utils/viewer.py) is not ported yet "
-                                  "(ROADMAP.md queue 1 item 5)")
     if not args.cpu and not torch.cuda.is_available():
         print("fit_3dgs: no CUDA device is available (pass --cpu to run on "
               "the CPU)", file=sys.stderr)
@@ -114,6 +111,12 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
     np.savez_compressed(args.out, **flat)
     print("wrote", args.out, f"({int(mask.sum())} gaussians)", flush=True)
+
+    if args.ply:
+        from splatformer_tpu_torch.utils.viewer import export_ply_for_viewer
+        os.makedirs(os.path.dirname(args.ply) or ".", exist_ok=True)
+        export_ply_for_viewer(gs, args.ply)
+        print("wrote", args.ply, flush=True)
     return 0
 
 

@@ -120,7 +120,8 @@ class FeaturePredictor(nn.Module):
                 generator: Optional[torch.Generator] = None,
                 order_perm: Optional[torch.Tensor] = None,
                 merge_scores: Optional[Iterable[torch.Tensor]] = None,
-                downsample_scores: Optional[torch.Tensor] = None
+                downsample_scores: Optional[torch.Tensor] = None,
+                diagnostics: Optional[Dict[str, Any]] = None
                 ) -> GaussianScene:
         """Refine ``scene``. In training, ``order_perm`` (a permutation of
         the 4 orders) fixes PTv3's order shuffle, else it is drawn from
@@ -130,7 +131,9 @@ class FeaturePredictor(nn.Module):
         block's attention, then its MLP). ``downsample_scores`` (N,) fixes
         random downsampling's scores in either mode; without it training
         draws them from ``generator``, evaluation from a CPU generator
-        seeded 0. Evaluation draws nothing else."""
+        seeded 0. Evaluation draws nothing else. ``diagnostics``, when
+        given, is filled with PTv3's (models/ptv3.py; with downsampling,
+        those of the reduced set); SpUNet's are empty."""
         mask = scene.valid_mask()
         n = scene.num_points
         dev = mask.device
@@ -173,7 +176,7 @@ class FeaturePredictor(nn.Module):
                     uniform = lambda shape: next(scores)  # noqa: E731
                 else:
                     uniform = draw
-            y = self.backbone(pb, generator, uniform)
+            y = self.backbone(pb, generator, uniform, diagnostics)
         if up is not None:
             y = up(y)  # the reduced set's outputs back on every point
         if self.input_feat_to_mlp:

@@ -27,14 +27,25 @@ serialized MLP input (one head). ``turn_off_bn`` makes every BatchNorm the
 identity; ``embedding_type="PT_embedding"`` is a 3^3 submanifold-conv stem
 in place of the Linear one.
 
+Diagnostics, as the JAX backbone returns them: given a ``diagnostics``
+dict, the forward fills ``enc{s}_n_valid`` after each encoder stage and
+``intermediates`` -> ``dec{s}`` -> ``{feat, code, n_valid}`` after each
+decoder stage (``code``: the first order's codes), all device tensors.
+``capture_attention`` records what the JAX attention sows for the replay
+(utils/attn_replay.py): the normalised input of ``qkv``, the padded order,
+its inverse, the coordinates, and the output after the inverse and before
+``proj``. Both are off unless asked for, and then cost one test each and
+neither a launch nor a host synchronisation.
+
 Module and parameter names follow the flax model's, so data/convert.py maps
 a JAX checkpoint one to one. LayerNorm eps is flax's 1e-6 and GELU is the
 tanh approximation, as flax's defaults.
 """
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Any, Dict, Optional, Sequence, Tuple
+from typing import Any, Dict, Iterator, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -88,6 +99,8 @@ class SerializedAttention(nn.Module):
         self.scale = (channels // num_heads) ** -0.5
         self.qkv = nn.Linear(channels, 3 * channels)
         self.proj = nn.Linear(channels, channels)
+        # capture_attention's dict while it records, else None
+        self.record: Optional[Dict[str, torch.Tensor]] = None
 
     def forward(self, feat: torch.Tensor, pb: PointBatch,
                 dtype: Optional[torch.dtype] = None,
@@ -127,7 +140,31 @@ class SerializedAttention(nn.Module):
             out = unmerge(out)                          # back to (B, H, K, ch)
         out = out.permute(0, 2, 1, 3).reshape(n, c).index_select(
             0, inverse.long())
+        if self.record is not None:
+            self.record.update(attn_feat=out, attn_in=feat, attn_order=order,
+                               attn_inverse=inverse, attn_coord=pb.coord)
         return linear(self.proj, out, dtype)
+
+
+@contextlib.contextmanager
+def capture_attention(model: nn.Module
+                      ) -> Iterator[Dict[str, Dict[str, torch.Tensor]]]:
+    """Record, for the forwards inside the ``with``, every
+    SerializedAttention's ``attn_in``, ``attn_order``, ``attn_inverse``,
+    ``attn_coord`` and ``attn_feat`` (the JAX module's sown
+    intermediates). Yields {path: record}, each path in the JAX form
+    (``backbone/enc0_block0/attn`` under a FeaturePredictor); a later
+    forward overwrites an earlier one's records."""
+    records: Dict[str, Dict[str, torch.Tensor]] = {}
+    mods = [(name, m) for name, m in model.named_modules()
+            if isinstance(m, SerializedAttention)]
+    for name, m in mods:
+        m.record = records.setdefault(name.replace(".", "/"), {})
+    try:
+        yield records
+    finally:
+        for _, m in mods:
+            m.record = None
 
 
 class Block(nn.Module):
@@ -370,9 +407,13 @@ class PointTransformerV3(nn.Module):
 
     def forward(self, pb: PointBatch,
                 generator: Optional[torch.Generator] = None,
-                uniform: Optional[merging.Uniform] = None) -> torch.Tensor:
+                uniform: Optional[merging.Uniform] = None,
+                diagnostics: Optional[Dict[str, Any]] = None
+                ) -> torch.Tensor:
         """``generator`` drives DropPath; ``uniform`` draws random_patch's
-        block scores (training only; None takes the blocks in order)."""
+        block scores (training only; None takes the blocks in order);
+        ``diagnostics``, when given, is filled with the stage counts and
+        the decoder stages' outputs (the module docstring)."""
         num_stages = len(self.enc_depths)
         # stage 0's conv structure, shared by a PT_embedding stem
         nbr0 = build_neighbor_map(pb.grid_coord, pb.mask)
@@ -405,10 +446,19 @@ class PointTransformerV3(nn.Module):
             for i in range(self.enc_depths[s]):
                 pb = self.get_submodule(f"enc{s}_block{i}")(
                     pb, nbr, generator, uniform)
+            if diagnostics is not None:
+                diagnostics[f"enc{s}_n_valid"] = pb.n_valid
 
+        intermediates = {}
         for s in reversed(range(num_stages - 1)):
             pb = self.get_submodule(f"dec{s}_up")(pb, skips[s], clusters[s])
             for i in range(self.dec_depths[s]):
                 pb = self.get_submodule(f"dec{s}_block{i}")(
                     pb, stage_nbrs[s], generator, uniform)
+            if diagnostics is not None:
+                intermediates[f"dec{s}"] = {"feat": pb.feat,
+                                            "code": pb.codes[0],
+                                            "n_valid": pb.n_valid}
+        if diagnostics is not None:
+            diagnostics["intermediates"] = intermediates
         return pb.feat

@@ -20,6 +20,12 @@ def num_sh_bases(degree: int) -> int:
     return (degree + 1) ** 2
 
 
+def rgb_to_sh(rgb):
+    """rgb -> SH degree-0 coefficient (the reference's RGB2SH); operators
+    only, so numpy arrays stay numpy."""
+    return (rgb - 0.5) / C0
+
+
 def eval_sh(degree: int, viewdirs: torch.Tensor,
             coeffs: torch.Tensor) -> torch.Tensor:
     """viewdirs (..., 3) unit, coeffs (..., num_sh_bases(degree), 3) ->

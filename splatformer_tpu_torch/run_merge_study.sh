@@ -5,13 +5,18 @@
 # scripts/run_scale_r5.sh's recipe to step $STEPS (an eval and a best
 # checkpoint at 750), --only_eval of that checkpoint at the sweep's pad (the
 # base row's check), then python -m splatformer_tpu_torch.eval_sweep over
-# every merging and downsampling algorithm at rates 0.1-0.9.
+# every merging and downsampling algorithm at rates 0.1-0.9, then the
+# effective tokens of the trained checkpoint (scripts/run_r5_post.sh's
+# calflops step: ALGM at 0.1, 0.5, 0.9 and ToMe, PiToMe, pruning at 0.5 on
+# 2 held-out scenes at the pad).
 #
 #     OUT=output/merge_study sh splatformer_tpu_torch/run_merge_study.sh
 #
 # Writes $OUT/eval_sweep.csv (eval.csv's schema), $OUT/eval.csv (the
-# --only_eval row), $OUT/run/ (the training run) and a log a stage. Done
-# scenes and done sweep rows are skipped, so a cut run continues.
+# --only_eval row), $OUT/run/ (the training run), $OUT/gflops.csv and
+# $OUT/gflops_tokens.csv (the token step) and a log a stage. Done scenes,
+# done sweep rows and done token rows are skipped and training resumes from
+# its checkpoint, so a cut run continues.
 set -e
 cd "$(dirname "$0")/.."
 ROOT=$(pwd)
@@ -19,6 +24,23 @@ OUT=${OUT:-output/merge_study}
 STEPS=${STEPS:-751}
 PAD=${PAD:-16384}
 mkdir -p "$OUT"
+
+have_tokens() {
+  [ -f "$OUT/gflops_tokens.csv" ] && grep -q "^$1,$2," "$OUT/gflops_tokens.csv"
+}
+
+tokens() {
+  for combo in "algm 0.1" "algm 0.5" "algm 0.9" \
+               "tome 0.5" "pitome 0.5" "prune 0.5"; do
+    set -- $combo
+    have_tokens "$1" "$2" && continue
+    python -m splatformer_tpu_torch.calflops --model "ptv3_$1" \
+        --dataset oodbench_scale --merge_rate "$2" --num_scenes 2 \
+        --ckpt "$OUT/run" --override dataset.max_gs_num="$PAD" \
+        --override dataset.pad_to="$PAD" --csv "$OUT/gflops.csv"
+  done >> "$OUT/tokens.log" 2>&1
+  echo "effective tokens: $OUT/gflops_tokens.csv"
+}
 
 [ -f weights/lpips_vgg.npz ] || python -c "from splatformer_tpu_torch.models.lpips import write_synthetic_weights as w; w('weights/lpips_vgg.npz')"
 
@@ -49,4 +71,5 @@ ln -sfn "$ROOT/weights" "$OUT/weights"
 python -m splatformer_tpu_torch.eval_sweep --run "$OUT/run" \
     --dataset oodbench_scale --pad "$PAD" --csv "$OUT/eval_sweep.csv" \
     > "$OUT/sweep.log" 2>&1
+tokens
 echo "merge study complete: $OUT/eval_sweep.csv"

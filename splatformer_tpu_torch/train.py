@@ -23,8 +23,9 @@
         --only_eval --output_dir output/smoke
 
 Runs on the card unless ``--cpu`` is given; without ``--cpu`` and without a
-card it exits with status 1. ``--save_viewer`` is not ported yet and is
-refused by name (ROADMAP.md queue 1 item 5).
+card it exits with status 1. ``--save_viewer`` (eval-only) writes each
+test scene's SIBR viewer folder and input-vs-refined ``viewer.html``
+under ``<output_dir>/<eval_subdir>/<dataset>/viewer/<scene>/``.
 """
 from __future__ import annotations
 
@@ -83,9 +84,6 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                                                      run_training)
     from splatformer_tpu_torch.utils.logging import get_logger, log_result_csv
 
-    if args.save_viewer:
-        raise NotImplementedError("--save_viewer (utils/viewer.py) is not "
-                                  "ported yet (ROADMAP.md queue 1 item 5)")
     cfg = build_full_config(args.model, args.dataset, args.train_config,
                             args.override)
     if args.merge_rate is not None:
@@ -135,7 +133,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             model, factory(), rcfg,
             output_dir=os.path.join(args.output_dir, args.eval_subdir, name),
             output_gt=True, compare_with_input=args.compare_with_input,
-            save_as_single=args.save_as_single, lpips_fn=lpips_fn)
+            save_as_single=args.save_as_single, save_viewer=args.save_viewer,
+            lpips_fn=lpips_fn)
         logger.info("eval %s: %s", name,
                     " ".join(f"{k}={v:.4f}" for k, v in metrics.items()))
         if metrics_input:

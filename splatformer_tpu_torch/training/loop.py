@@ -11,8 +11,10 @@ host prefetch thread when ``num_workers`` > 0. One process on one device:
 the loaders shard scenes by torch.distributed's rank and world size when
 it is initialised, but the JAX package's cross-process metric reduction is
 the plain per-image mean here, and file names keep its ``rank0``. There is
-no TensorBoard: history.json and train.log carry the scalars. train.py
-refuses ``--save_viewer`` (ROADMAP.md queue 1 item 5).
+no TensorBoard: history.json and train.log carry the scalars.
+``evaluation(save_viewer=True)`` writes each scene's SIBR viewer folder
+(utils/viewer.py) and an input-vs-refined ``viewer.html``
+(utils/webviewer.py), as the JAX package's.
 """
 from __future__ import annotations
 
@@ -27,9 +29,10 @@ import torch
 from splatformer_tpu_torch.data.synthetic import orbit_cameras, random_scene
 from splatformer_tpu_torch.device import resolve_device
 from splatformer_tpu_torch.models.feature_predictor import (
-    FeaturePredictor, build_feature_predictor)
+    ALL_FEATURES, FeaturePredictor, build_feature_predictor)
 from splatformer_tpu_torch.models.lpips import make_lpips_fn
 from splatformer_tpu_torch.ops.render import render_images
+from splatformer_tpu_torch.ops.sh import C0
 from splatformer_tpu_torch.ops.types import RasterizeConfig
 from splatformer_tpu_torch.training import checkpoints as ckpt_lib
 from splatformer_tpu_torch.training.checkpoints import TrainState
@@ -211,12 +214,49 @@ def _to_u8(img: torch.Tensor) -> np.ndarray:
     return (np.clip(img.detach().cpu().numpy(), 0, 1) * 255).astype(np.uint8)
 
 
+def export_scene_viewer(model: FeaturePredictor, batch: SceneBatch,
+                        vdir: str, name: str) -> None:
+    """``vdir``: cfg_args and cameras.json, the live Gaussians of the input
+    (point_cloud/iteration_0) and of the refined scene (iteration_1) as
+    Inria PLYs, and an input-vs-refined viewer.html."""
+    from splatformer_tpu_torch.utils.viewer import (export_ply_for_viewer,
+                                                    prepare_viewer)
+    from splatformer_tpu_torch.utils.webviewer import (
+        export_interactive_viewer)
+    cams = batch.cameras
+    prepare_viewer({"camera_to_worlds": cams.c2w.cpu().numpy(),
+                    "fx": float(cams.fx[0]), "fy": float(cams.fy[0]),
+                    "width": cams.width, "height": cams.height},
+                   vdir, sh_degree=1)
+    mask = batch.scene.valid_mask().cpu().numpy()
+    in_gs = {k: getattr(batch.scene, k).cpu().numpy()[mask]
+             for k in ALL_FEATURES}
+    export_ply_for_viewer(in_gs, os.path.join(
+        vdir, "point_cloud/iteration_0/point_cloud.ply"))
+    with torch.inference_mode():
+        refined = model(batch.scene)
+    out_gs = {k: getattr(refined, k).cpu().numpy()[mask] for k in in_gs}
+    export_ply_for_viewer(out_gs, os.path.join(
+        vdir, "point_cloud/iteration_1/point_cloud.ply"))
+
+    def cloud(gs):
+        return gs["means"], np.clip(gs["features_dc"] * C0 + 0.5, 0, 1)
+    export_interactive_viewer(
+        os.path.join(vdir, "viewer.html"),
+        {"input 3DGS": cloud(in_gs), "refined": cloud(out_gs)},
+        title=f"scene {name}: input vs refined")
+
+
 def evaluation(model: FeaturePredictor, scene_list, rcfg: RasterizeConfig,
                output_dir: str, output_gt: bool = False,
                compare_with_input: bool = False, save_as_single: bool = False,
+               save_viewer: bool = False,
                lpips_fn=None) -> Tuple[Dict[str, float], Dict[str, float],
                                        float]:
-    """Evaluate a list of (name, SceneBatch) scenes.
+    """Evaluate a list of (name, SceneBatch) scenes. ``save_viewer`` also
+    writes ``viewer/<name>/`` (export_scene_viewer); the input is rendered
+    only for ``compare_with_input``, since the viewer export reads no
+    image.
 
     Returns (metrics, metrics_input, peak_mem_mb); metrics are per-image
     means over the list."""
@@ -255,6 +295,9 @@ def evaluation(model: FeaturePredictor, scene_list, rcfg: RasterizeConfig,
             sdir = os.path.join(output_dir, "pred", str(name))
             for vi in range(pred_u8.shape[0]):
                 save_image(os.path.join(sdir, f"{vi:02d}.png"), pred_u8[vi])
+        if save_viewer:
+            export_scene_viewer(model, batch, os.path.join(
+                output_dir, "viewer", str(name)), name)
 
     mc.write_to_file(os.path.join(output_dir, "metrics.rank0.json"))
     n_images = float(sum(arr.size for arr in

@@ -384,8 +384,13 @@ def test_train_cli_on_cpu(tmp_path, monkeypatch):
         rows = [line.strip().split(",") for line in f]
     assert len(rows) == 3 and rows[2][4:] == ["tome", "0.5", "0.0"]
     assert all(np.isfinite(float(x)) for x in rows[2][1:4])
-    with pytest.raises(NotImplementedError, match="item 5"):
-        train_cli.main(args + ["--save_viewer"])
+    assert train_cli.main(args + ["--only_eval", "--save_viewer",
+                                  "--eval_subdir", "viewer"]) == 0
+    vdir = "run/viewer/synthetic/viewer/scene0"
+    for f in ("cfg_args", "cameras.json", "viewer.html",
+              "point_cloud/iteration_0/point_cloud.ply",
+              "point_cloud/iteration_1/point_cloud.ply"):
+        assert os.path.exists(os.path.join(vdir, f)), f
     if not torch.cuda.is_available():
         assert train_cli.main(["--output_dir", "run"]) == 1
 

@@ -159,10 +159,15 @@ def test_prepare_data_and_fit_3dgs(bench_dir, tmp_path, capsys):
     fit_args = ["--cpu", "--colmap", f"{bench_dir}/train/colmap/scene00000",
                 "--out", out, "--steps", "8", "--capacity", "2048",
                 "--max_intersects", "16384", "--log_every", "0"]
-    assert fit_3dgs.main(fit_args) == 0
+    ply = str(tmp_path / "x.ply")
+    assert fit_3dgs.main(fit_args + ["--ply", ply]) == 0
     fitted = nerfstudio.load_scene_npz(out)
     n = fitted["gs_params"]["means"].shape[0]
     assert 0 < n <= 2048 and len(fitted["train_imgs_path"]) == 14
     assert all(np.isfinite(v).all() for v in fitted["gs_params"].values())
-    with pytest.raises(NotImplementedError, match="item 5"):
-        fit_3dgs.main(fit_args + ["--ply", str(tmp_path / "x.ply")])
+    # the viewer PLY holds the same live Gaussians
+    from splatformer_tpu_torch.utils.viewer import read_ply
+    fields = read_ply(ply)
+    assert np.array_equal(fields["x"], fitted["gs_params"]["means"][:, 0])
+    assert np.array_equal(fields["opacity"],
+                          fitted["gs_params"]["opacities"].reshape(n))

@@ -357,3 +357,35 @@ def test_attention_f32_fwd_rescale_wide_and_determinism_on_card(d, kind):
     torch.cuda.synchronize()
     assert torch.equal(o, o2) and torch.equal(lse, lse2)
     assert LAUNCHES["attention_fwd"] == before + 2
+
+
+@pytest.mark.cuda
+def test_attention_replay_matches_flash_capture_on_card():
+    """A tiny enable_flash model (patch 64, head widths 16, 24 and 16) on
+    512 Gaussians: the attention recorded under capture is K3-fwd's float32
+    output, once a block; the plain per-head replay (utils/attn_replay.py,
+    float32 products, TF32 off) concatenated over heads equals it within
+    1e-4 of its largest magnitude."""
+    _card()
+    from splatformer_tpu_torch.data.synthetic import random_scene
+    from splatformer_tpu_torch.models.feature_predictor import (
+        FeaturePredictor, init_weights)
+    from splatformer_tpu_torch.utils.attn_replay import (
+        collect_attention_blocks, head_count_for, replay_block)
+    bk = dict(enc_depths=(1, 1), enc_channels=(32, 48), enc_num_head=(2, 2),
+              enc_patch_size=(64, 64), dec_depths=(1,), dec_channels=(32,),
+              dec_num_head=(2,), dec_patch_size=(64,), stride=(2,),
+              drop_path=0.0, use_flash=True)
+    model = FeaturePredictor(backbone_kwargs=bk, grid_resolution=64).eval()
+    init_weights(model, torch.Generator().manual_seed(0), zeroinit=False)
+    model = model.cuda()
+    scene = random_scene(np.random.default_rng(0), 512, device="cuda")
+    reset_launches()
+    recs = collect_attention_blocks(model, scene)
+    assert LAUNCHES["attention_fwd"] == len(recs) == 3
+    for path, rec in recs.items():
+        rep = replay_block(rec, head_count_for(path, bk), 64)
+        got = np.concatenate(rep["attn_feats"], axis=1)
+        want = rec["attn_feat"].cpu().numpy()
+        assert want.dtype == np.float32
+        assert np.abs(got - want).max() <= 1e-4 * np.abs(want).max(), path
