@@ -137,6 +137,39 @@ Phases, each printing one JSON line:
             calls render (steps, eval renders of the refined and the input
             scenes, ground truth, train images) and K2 once a step; the
             kernels line's ``loop_launches``;
+  dp_training  in an NCCL process group of world size 1 (a file store in
+            a temporary directory): the data-parallel train step (``mesh``,
+            BatchNorm synced over its data group) against the plain step,
+            PTv3-base at full width with the recipe, from one state, one
+            generator seed and one batch, each under
+            torch.use_deterministic_algorithms (else the gathers' atomic
+            scatter-adds differ run to run, train_repro): loss, every
+            gradient, the updated parameters and the BatchNorm statistics
+            bit-identical, K1 and K2 once a step both ways; the step's ms
+            both ways, the gradient all-reduce's ms over the 47.9M float32
+            gradients; reduce_metric_sums and sync_processes at world size
+            1;
+  dp_training_flash  the same with enable_flash: K3-fwd and K3-bwd 22
+            times a step both ways;
+  gauss_shard  render_images_gauss_sharded on a 100k-Gaussian scene
+            (padded to 100,352) x 4 views at 256^2 through the NCCL group
+            (G = 1), LocalShards(2) and LocalShards(4), against the
+            unsharded render: rgb and alpha within 2e-5, the gradients of
+            mean(rgb^2) within 1e-5 + 5e-3 |g| (tests/test_gauss_shard.py's
+            bounds), nothing dropped, K1 and K2 G times each a forward and
+            backward; ms at each G and unsharded, the exchange's bytes per
+            rank; then K1 and K2 against their plain versions on the row
+            blocks of one destination (K1's and K2's limits above);
+  train2d   the 2-D (data x gauss) step on PTv3-base (bf16, heads x0.01),
+            each from one state under the deterministic mode: (1, 1) over
+            NCCL groups against the DP step and (1, LocalShards(2)) against
+            (1, 1), loss within 1e-6 relative and gradient cosine >=
+            0.99999; K1 and K2 G times a step, step ms, peak memory;
+  dryrun    ``torchrun --standalone --nproc_per_node=1 -m
+            splatformer_tpu_torch.dryrun_multichip`` in its own processes:
+            a DP step, a sharded render's value and gradient, a 2-D step,
+            each finite; with dp_training*, gauss_shard and train2d, the
+            kernels line's ``parallel_launches``;
   fit_reference  the per-scene fit (training/fit_gs.py) at
             tests/test_fit_gs.py's size (capacity 1,024, 5 views at 48^2,
             60 steps, one densify), card against CPU: one step's loss
@@ -173,9 +206,9 @@ Phases, each printing one JSON line:
             line parses, with bench.py's keys, positive rates and the
             card's name and power limit.
 Launch counts are reset at the start of each phase and checked per phase.
-Then the smoke's total seconds (and the merge and diag phases' shares), the
-{"kernels": [...]} line, the card's name and power limit, and as
-the last line {"ok": true, "device": {...}}. Any failure raises and exits
+Then the smoke's total seconds (and the merge, diag and parallel phases'
+shares), the {"kernels": [...]} line, the card's name and power limit, and
+as the last line {"ok": true, "device": {...}}. Any failure raises and exits
 non-zero; without a CUDA device it exits 1 before any phase.
 """
 import json
@@ -1772,13 +1805,14 @@ def phase_train_reference_flash():
 
 
 def k3_entry(name, source, replaces, launches, totals, merge_launches,
-             diag_launches, serving_launches=None):
+             diag_launches, parallel_launches, serving_launches=None):
     """The kernels line's entry of a K3 kernel: its sums over one forward
     pass's launches in bfloat16, the train step's type; with
     ``serving_launches`` also, under "float32", the same for float32, the
     serving path's type, with that path's launches; ``merge_launches``
     those of the merge phases, ``diag_launches`` those of the diagnostics,
-    flops and viewer phases."""
+    flops and viewer phases, ``parallel_launches`` those of the dp_training,
+    gauss_shard and train2d phases."""
     def sums(t):
         return {"max_abs_err": t["max_abs_err"], "ms": t["ms"],
                 "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
@@ -1787,6 +1821,7 @@ def k3_entry(name, source, replaces, launches, totals, merge_launches,
              "replaces": replaces, "launches": launches[name],
              "merge_launches": merge_launches[name],
              "diag_launches": diag_launches[name],
+             "parallel_launches": parallel_launches[name],
              **sums(totals["bfloat16"]),
              "per": f"one forward pass: {K3_BLOCKS} launches, bfloat16"}
     if serving_launches is not None:
@@ -2202,23 +2237,31 @@ def hold_composite(e, hw, seed):
     """K1 and K2 against their plain versions on one view's entries ``e``
     (a cotangent drawn from ``seed``): errors, walks and the kernels'
     times."""
+    tiles_x = hw // 16
+    return {"num_entries": int(e.bins.num_entries),
+            "num_dropped": int(e.bins.num_dropped),
+            **hold_kernels(e.packed_t, e.tile_start, tiles_x,
+                           tiles_x * tiles_x, seed)}
+
+
+def hold_kernels(packed_t, tile_start, tiles_x, tiles_img, seed):
+    """K1 and K2 against their plain versions on packed entries over
+    images of ``tiles_img`` tiles, ``tiles_x`` wide (a cotangent drawn
+    from ``seed``): errors, walks and the kernels' times."""
     from splatformer_tpu_torch.kernels.composite import (composite_bwd,
                                                          composite_bwd_plain,
                                                          composite_fwd,
                                                          composite_fwd_plain)
-    tiles_x = hw // 16
-    args = (e.packed_t, e.tile_start, tiles_x, tiles_x * tiles_x)
+    args = (packed_t, tile_start, tiles_x, tiles_img)
     out_k, walked_k = composite_fwd(*args)
     out_p, walked_p = composite_fwd_plain(*args)
-    gen = torch.Generator(device="cuda").manual_seed(seed)
-    g_out = torch.randn(out_k.shape, generator=gen, device="cuda")
+    gen = torch.Generator(device=packed_t.device).manual_seed(seed)
+    g_out = torch.randn(out_k.shape, generator=gen, device=packed_t.device)
     bargs = args + (out_k, walked_k, g_out)
     d_k = composite_bwd(*bargs)
     d_p = composite_bwd_plain(*bargs)
-    replayed = replayed_columns(e.tile_start, walked_k, e.packed_t.shape[1])
+    replayed = replayed_columns(tile_start, walked_k, packed_t.shape[1])
     return {
-        "num_entries": int(e.bins.num_entries),
-        "num_dropped": int(e.bins.num_dropped),
         "walk_max": int(walked_k.max()),
         "walk_mean": float(walked_k.float().mean()),
         "k1_max_abs_err": float((out_k - out_p).abs().max()),
@@ -2482,6 +2525,458 @@ def phase_bench():
         raise AssertionError(f"bench output: {lines}")
 
 
+# ---------------------------------------------------------------------------
+# parallel/: scene data parallelism, the Gaussian-sharded render, 2-D steps
+# ---------------------------------------------------------------------------
+
+GAUSS_FWD_TOL = 2e-5          # tests/test_gauss_shard.py's atol
+GAUSS_GRAD_ATOL, GAUSS_GRAD_RTOL = 1e-5, 5e-3   # its row-block gradients
+TRAIN2D_LOSS_RTOL = 1e-6
+TRAIN2D_GRAD_COS = 0.99999
+PAYLOAD_BYTES = 8 + 9 * 4     # an exchanged entry: merge key, payload
+
+
+def init_world_of_one():
+    """An NCCL process group of world size 1 (rank 0, a file store in a
+    temporary directory, removed by the caller after
+    destroy_process_group); returns the directory."""
+    import datetime
+    import tempfile
+
+    import torch.distributed as dist
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_pg_")
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
+                            rank=0, world_size=1,
+                            timeout=datetime.timedelta(minutes=5))
+    return tmp
+
+
+def deterministic_step(step, batch, gen):
+    """One train step under torch.use_deterministic_algorithms (the
+    gathers' backward, index_add_, otherwise adds atomically, so that two
+    runs of one step differ in their last bits: train_repro). Returns (its
+    metrics as floats, its launches, its ms, the peak GB, the warnings of
+    the deterministic mode)."""
+    import warnings
+
+    from splatformer_tpu_torch.kernels import LAUNCHES, reset_launches
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            t0 = time.perf_counter()
+            metrics = {k: float(v) for k, v in step(batch, gen).items()}
+            torch.cuda.synchronize()
+            det_ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            torch.use_deterministic_algorithms(False)
+    launches = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    return (metrics, launches, det_ms, peak,
+            sorted({str(w.message)[:160] for w in caught}))
+
+
+def timed_step(step, batch, gen):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step(batch, gen)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def phase_dp_training(flash=False):
+    """The data-parallel train step (``mesh`` from the world of one
+    process, the model's BatchNorm synced over its data group) against the
+    plain step, PTv3-base at full width with the recipe (bf16, drop_path
+    0.3, Adam), from one seeded state, one generator seed and one batch,
+    each under the deterministic mode: loss, every gradient, the updated
+    parameters and the BatchNorm statistics bit-identical; the launches of
+    a step unchanged (K1 1, K2 1, K3 22 each with ``flash``); the step's
+    ms both ways (3 more steps each, in turns, outside the deterministic
+    mode) and the gradient all-reduce's ms (and its NCCL call's alone, on
+    one flat buffer); reduce_metric_sums and sync_processes at world size
+    1. Returns the DP step's launches."""
+    import torch.distributed as dist
+
+    from splatformer_tpu_torch.configs.model_ptv3_base import get_config
+    from splatformer_tpu_torch.configs.train_default import \
+        get_config as train_config
+    from splatformer_tpu_torch.models.feature_predictor import (
+        build_feature_predictor)
+    from splatformer_tpu_torch.parallel.collectives import all_reduce_mean_
+    from splatformer_tpu_torch.parallel.distributed import (
+        reduce_metric_sums, sync_processes)
+    from splatformer_tpu_torch.parallel.mesh import make_mesh
+    from splatformer_tpu_torch.training.optim import build_optimizer
+    from splatformer_tpu_torch.training.train_step import (make_train_step,
+                                                           trainable_grads)
+
+    name = "dp_training_flash" if flash else "dp_training"
+    tcfg = train_config()
+    oc = tcfg.optimizer
+    cfg = get_config()   # zeroinit and drop_path 0.3, as the recipe
+    cfg.backbone.enable_flash = flash
+    mesh = make_mesh()
+    batch = make_request(410, SCENE_PAD, SCENE_N, VIEWS, HW, "cuda")
+    runs = {}
+    for way, m in (("plain", None), ("dp", mesh)):
+        model = build_feature_predictor(
+            cfg, device="cuda", seed=0, compute_dtype="bfloat16",
+            bn_group=m.data_group if m else None)
+        opt = build_optimizer(model, dict(oc.lr_dict), oc.type, oc.eps,
+                              oc.schedule, tcfg.total_steps,
+                              oc.warmup_steps, tcfg.grad_clip_norm)
+        step = make_train_step(
+            model, opt, image_l1_loss_weight=tcfg.image_l1_loss_weight,
+            mesh=m)
+        gen = torch.Generator(device="cuda").manual_seed(tcfg.seed)
+        metrics, launches, det_ms, peak, warned = deterministic_step(
+            step, batch, gen)
+        runs[way] = {"metrics": metrics, "launches": launches,
+                     "det_ms": det_ms, "peak_mem_gb": peak,
+                     "warnings": warned, "model": model, "step": step,
+                     "gen": gen, "ms": [],
+                     "grads": [g.clone() for g in trainable_grads(model)],
+                     "state": {k: v.clone()
+                               for k, v in model.state_dict().items()}}
+    # the step's time both ways, in turns, outside the deterministic mode
+    for way in ("plain", "dp", "dp", "plain", "plain", "dp"):
+        r = runs[way]
+        r["ms"].append(timed_step(r["step"], batch, r["gen"]))
+    d = runs["dp"]
+    grads = trainable_grads(d["model"])
+    d["grad_elements"] = sum(g.numel() for g in grads)
+    d["allreduce_ms"] = cuda_ms(
+        lambda: all_reduce_mean_(grads, mesh.data_group), 10)
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    d["nccl_ms"] = cuda_ms(
+        lambda: dist.all_reduce(flat, group=mesh.data_group), 10)
+    del grads, flat
+    for r in runs.values():
+        del r["model"], r["step"], r["gen"]
+    torch.cuda.empty_cache()
+    p, d = runs["plain"], runs["dp"]
+    grads_differing = sum(int((a != b).sum())
+                          for a, b in zip(p["grads"], d["grads"]))
+    state_differing = {k: int((v != d["state"][k]).sum())
+                       for k, v in p["state"].items()}
+    stats_differing = sum(v for k, v in state_differing.items()
+                          if k.endswith((".mean", ".var")))
+    reduced = reduce_metric_sums({"psnr": 61.0, "ssim": 1.5}, 2.0)
+    sync_processes("chip_smoke")
+    k3 = K3_BLOCKS if flash else 0
+    expected = {"composite_fwd": 1, "composite_bwd": 1,
+                "attention_fwd": k3, "attention_bwd": k3}
+    result = {
+        "phase": name, "model": "ptv3_base", "compute_dtype": "bfloat16",
+        "patch": 1024 if flash else 128,
+        "backend": dist.get_backend(), "world_size": dist.get_world_size(),
+        "loss": [p["metrics"]["total_loss"], d["metrics"]["total_loss"]],
+        "metrics_equal": p["metrics"] == d["metrics"],
+        "grads_differing": grads_differing,
+        "params_differing": sum(state_differing.values()) - stats_differing,
+        "bn_stats_differing": stats_differing,
+        "grad_elements": d["grad_elements"],
+        "grad_bytes": 4 * d["grad_elements"],
+        "step_ms": {"plain": p["ms"], "dp": d["ms"]},
+        "step_ms_median": {"plain": float(np.median(p["ms"])),
+                           "dp": float(np.median(d["ms"]))},
+        "step_ms_deterministic": {"plain": p["det_ms"], "dp": d["det_ms"]},
+        "grad_allreduce_ms": d["allreduce_ms"],
+        "grad_allreduce_nccl_call_ms": d["nccl_ms"],
+        "peak_mem_gb": max(p["peak_mem_gb"], d["peak_mem_gb"]),
+        "launches": {"plain": p["launches"], "dp": d["launches"]},
+        "deterministic_mode_warnings": sorted(set(p["warnings"])
+                                              | set(d["warnings"])),
+        "reduce_metric_sums": reduced}
+    emit(result)
+    if not (result["metrics_equal"] and grads_differing == 0
+            and sum(state_differing.values()) == 0):
+        raise AssertionError(f"the DP step at world size 1 is not the plain "
+                             f"step bit for bit: {result}")
+    if p["launches"] != expected or d["launches"] != expected:
+        raise AssertionError(f"{name} launched {result['launches']}, want "
+                             f"{expected} a step")
+    if reduced != {"psnr": 30.5, "ssim": 0.75}:
+        raise AssertionError(f"reduce_metric_sums: {reduced}")
+    return d["launches"]
+
+
+def phase_gauss_shard():
+    """render_images_gauss_sharded at full width (100k live Gaussians of
+    100,352, 4 views at 256^2, background (0.1, 0.2, 0.3)) through the
+    NCCL group (G = 1), LocalShards(2) and LocalShards(4), against the
+    unsharded render_images_stats: rgb and alpha within 2e-5, the gradient
+    of mean(rgb^2) by means, scales, quats, opacities and features_dc
+    within 1e-5 + 5e-3 |g|, nothing dropped, K1 and K2 G times each per
+    forward and backward; ms per forward and backward at each G and
+    unsharded; the exchange's bytes per rank. Then K1 and K2 against
+    their plain versions on the row blocks of LocalShards(4)'s busiest
+    destination (K1_TOL and walks exact, K2_TOL). Returns the three
+    sharded runs' launches summed."""
+    import torch.distributed as dist
+
+    from splatformer_tpu_torch.data.synthetic import (orbit_cameras,
+                                                      random_scene)
+    from splatformer_tpu_torch.kernels import LAUNCHES, reset_launches
+    from splatformer_tpu_torch.ops.render import render_images_stats
+    from splatformer_tpu_torch.ops.types import RasterizeConfig
+    from splatformer_tpu_torch.parallel.gauss_shard import (
+        GroupExchange, LocalShards, RowBlocks, merge_entries,
+        render_images_gauss_sharded, send_shard, shard_scene)
+
+    attrs = ("means", "scales", "quats", "opacities", "features_dc")
+    scene = random_scene(np.random.default_rng(7), SCENE_PAD, sh_degree=1,
+                         n_valid=SCENE_N, device="cuda")
+    cams = orbit_cameras(VIEWS, HW, HW, device="cuda")
+    bg = torch.tensor([0.1, 0.2, 0.3], device="cuda")
+    rcfg = RasterizeConfig()
+
+    def run(render):
+        leaves = {k: getattr(scene, k).detach().clone().requires_grad_(True)
+                  for k in attrs}
+        rgb, alpha = render(scene.replace(**leaves))
+        torch.mean(torch.square(rgb)).backward()
+        return rgb.detach(), alpha.detach(), {k: leaves[k].grad
+                                              for k in attrs}
+
+    def unsharded(s):
+        return render_images_stats(s, cams, bg, rcfg)[:2]
+
+    rgb0, alpha0, g0 = run(unsharded)
+    with torch.no_grad():
+        dropped0 = int(render_images_stats(scene, cams, bg,
+                                           rcfg)[2]["num_dropped"])
+    ref_ms = cuda_ms(lambda: run(unsharded), 3)
+    rows, totals = [], dict.fromkeys(LAUNCHES, 0)
+    for label, gauss in (("nccl_group", GroupExchange(dist.group.WORLD)),
+                         ("local_shards_2", LocalShards(2)),
+                         ("local_shards_4", LocalShards(4))):
+        def sharded(s, gauss=gauss):
+            return render_images_gauss_sharded(s, cams, bg, rcfg, gauss)
+        torch.cuda.synchronize()
+        reset_launches()
+        rgb, alpha, g = run(sharded)
+        torch.cuda.synchronize()
+        launches = dict(LAUNCHES)
+        for k in totals:
+            totals[k] += launches[k]
+        ms = cuda_ms(lambda: run(sharded), 3)
+        n_shards = gauss.size
+        geo = RowBlocks(HW, HW, rcfg.tile_size, n_shards)
+        with torch.no_grad():
+            dropped = [int(send_shard(shard_scene(scene, i,
+                                                  SCENE_PAD // n_shards),
+                                      cams, rcfg, geo,
+                                      rcfg.max_intersects).dropped)
+                       for i in range(n_shards)]
+        grad_err = {k: float((g[k] - g0[k]).abs().max()) for k in attrs}
+        grad_excess = {k: float(((g[k] - g0[k]).abs() - GAUSS_GRAD_ATOL
+                                 - GAUSS_GRAD_RTOL * g0[k].abs()).max())
+                       for k in attrs}
+        rows.append({
+            "exchange": label, "shards": n_shards,
+            "rgb_max_abs_err": float((rgb - rgb0).abs().max()),
+            "alpha_max_abs_err": float((alpha - alpha0).abs().max()),
+            "grad_max_abs_err": grad_err, "grad_excess": grad_excess,
+            "num_dropped": dropped, "ms": ms, "launches": launches,
+            "exchange_bytes_per_rank": n_shards * rcfg.max_intersects
+            * PAYLOAD_BYTES * VIEWS,
+            "rows_per_block": geo.rows_loc})
+
+    # the row blocks of one destination through K1 and K2 and their plain
+    # versions: LocalShards(4)'s destination with the most entries
+    geo = RowBlocks(HW, HW, rcfg.tile_size, 4)
+    with torch.no_grad():
+        sends = [send_shard(shard_scene(scene, i, SCENE_PAD // 4), cams,
+                            rcfg, geo, rcfg.max_intersects)
+                 for i in range(4)]
+        received = LocalShards(4).exchange(sends)
+        live = [int((k >> 32 < VIEWS * geo.tiles_loc).sum())
+                for k, _ in received]
+        dest = int(np.argmax(live))
+        packed_t, tile_start = merge_entries(*received[dest], dest, VIEWS,
+                                             geo)
+    hold = hold_kernels(packed_t, tile_start, geo.tiles_x, geo.tiles_loc, 9)
+    result = {"phase": "gauss_shard", "gaussians": SCENE_PAD,
+              "live": SCENE_N, "views": VIEWS, "hw": HW,
+              "unsharded_ms": ref_ms, "unsharded_num_dropped": dropped0,
+              "runs": rows,
+              "row_block_kernels": {"destination": dest,
+                                    "entries": live[dest],
+                                    "tiles": VIEWS * geo.tiles_loc, **hold}}
+    emit(result)
+    for r in rows:
+        n_shards = r["shards"]
+        if not (r["rgb_max_abs_err"] <= GAUSS_FWD_TOL
+                and r["alpha_max_abs_err"] <= GAUSS_FWD_TOL
+                and max(r["grad_excess"].values()) <= 0
+                and sum(r["num_dropped"]) == 0 and dropped0 == 0):
+            raise AssertionError(f"the sharded render at G = {n_shards} "
+                                 f"disagrees: {r}")
+        want = {"composite_fwd": n_shards, "composite_bwd": n_shards,
+                "attention_fwd": 0, "attention_bwd": 0}
+        if r["launches"] != want:
+            raise AssertionError(f"G = {n_shards} launched {r['launches']}, "
+                                 f"want {want}")
+    if not (hold["k1_max_abs_err"] <= K1_TOL
+            and hold["walked_mismatches"] == 0
+            and max(hold["k2_row_rel_err"]) <= K2_TOL
+            and hold["stray_nonzeros"] == 0 and live[dest] > 0):
+        raise AssertionError(f"K1/K2 on the row blocks: {hold}")
+    return totals
+
+
+def phase_train2d():
+    """The 2-D (data x gauss) step, PTv3-base at full width (bf16,
+    drop_path 0.3, heads not zero-initialised but x0.01 so that the
+    backbone gets gradients, Adam), each step from one state, generator
+    seed and batch, under the deterministic mode: (data 1, gauss 1) over
+    NCCL groups against the DP step, and (1, LocalShards(2)) against
+    (1, 1): loss within 1e-6 relative, gradient cosine >= 0.99999 (the
+    render bins view by view and sums the L1 row block by row block, so
+    float32 sums may round in another order; at G = 1 they do not: the
+    per-view binning keeps the flat binning's entries in its order, the
+    row mask is all ones and the denominator the mean's count, so the
+    (1, 1) step has so far matched the DP step bit for bit); launches,
+    peak memory and the step's ms (3 steps a variant, in turns). Returns
+    the 2-D steps' launches summed."""
+    from splatformer_tpu_torch.configs.model_ptv3_base import get_config
+    from splatformer_tpu_torch.configs.train_default import \
+        get_config as train_config
+    from splatformer_tpu_torch.models.feature_predictor import (
+        build_feature_predictor)
+    from splatformer_tpu_torch.ops.types import RasterizeConfig
+    from splatformer_tpu_torch.parallel.gauss_shard import LocalShards
+    from splatformer_tpu_torch.parallel.mesh import make_mesh
+    from splatformer_tpu_torch.parallel.train2d import (make_mesh_2d,
+                                                        make_train_step_2d)
+    from splatformer_tpu_torch.training.optim import build_optimizer
+    from splatformer_tpu_torch.training.train_step import (make_train_step,
+                                                           trainable_grads)
+
+    tcfg = train_config()
+    oc = tcfg.optimizer
+    cfg = get_config()
+    cfg.zeroinit = False
+    mesh, mesh2 = make_mesh(), make_mesh_2d(1, 1)
+    model = build_feature_predictor(cfg, device="cuda", seed=0,
+                                    head_final_scale=0.01,
+                                    compute_dtype="bfloat16",
+                                    bn_group=mesh2.data_group)
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    batch = make_request(420, SCENE_PAD, SCENE_N, VIEWS, HW, "cuda")
+    rcfg = RasterizeConfig()
+    w = tcfg.image_l1_loss_weight
+    variants = {
+        "dp": lambda opt: make_train_step(model, opt, rcfg, w, mesh=mesh),
+        "2d_1x1": lambda opt: make_train_step_2d(model, opt, mesh2, rcfg, w),
+        "2d_1xlocal2": lambda opt: make_train_step_2d(
+            model, opt, mesh2, rcfg, w, gauss=LocalShards(2))}
+    runs = {}
+    for name, make in variants.items():
+        model.load_state_dict(init)
+        opt = build_optimizer(model, dict(oc.lr_dict), oc.type, oc.eps,
+                              oc.schedule, tcfg.total_steps,
+                              oc.warmup_steps, tcfg.grad_clip_norm)
+        step = make(opt)
+        gen = torch.Generator(device="cuda").manual_seed(tcfg.seed)
+        metrics, launches, det_ms, peak, warned = deterministic_step(
+            step, batch, gen)
+        grad = torch.cat([g.reshape(-1) for g in trainable_grads(model)])
+        runs[name] = {"metrics": metrics, "launches": launches,
+                      "det_ms": det_ms, "peak_mem_gb": peak,
+                      "warnings": warned, "grad": grad.double(),
+                      "step": step, "gen": gen, "ms": []}
+    # each step's time, 3 steps a variant in turns, outside the
+    # deterministic mode (the shared model moves on; each is a real step)
+    for name in ("dp", "2d_1x1", "2d_1xlocal2", "2d_1xlocal2", "2d_1x1",
+                 "dp", "dp", "2d_1x1", "2d_1xlocal2"):
+        runs[name]["ms"].append(timed_step(runs[name]["step"], batch,
+                                           runs[name]["gen"]))
+    for r in runs.values():
+        r["ms_median"] = float(np.median(r["ms"]))
+        del r["step"], r["gen"]
+
+    def compare(a, b):
+        ga, gb = runs[a]["grad"], runs[b]["grad"]
+        la = runs[a]["metrics"]["total_loss"]
+        lb = runs[b]["metrics"]["total_loss"]
+        return {"pair": [a, b], "loss": [la, lb],
+                "loss_rel_diff": abs(la - lb) / abs(lb),
+                "grad_cos": float(ga @ gb / (ga.norm() * gb.norm())),
+                "grad_max_abs_diff": float((ga - gb).abs().max()),
+                "grad_max_abs": float(gb.abs().max()),
+                "bit_identical": bool(torch.equal(ga, gb)) and la == lb}
+
+    pairs = [compare("2d_1x1", "dp"), compare("2d_1xlocal2", "2d_1x1")]
+    result = {"phase": "train2d", "model": "ptv3_base",
+              "compute_dtype": "bfloat16", "comparisons": pairs,
+              **{name: {k: v for k, v in r.items() if k != "grad"}
+                 for name, r in runs.items()}}
+    emit(result)
+    for c in pairs:
+        if not (c["loss_rel_diff"] <= TRAIN2D_LOSS_RTOL
+                and c["grad_cos"] >= TRAIN2D_GRAD_COS):
+            raise AssertionError(f"train2d {c['pair']} disagree: {c}")
+    for name, g in (("dp", 1), ("2d_1x1", 1), ("2d_1xlocal2", 2)):
+        want = {"composite_fwd": g, "composite_bwd": g, "attention_fwd": 0,
+                "attention_bwd": 0}
+        if runs[name]["launches"] != want:
+            raise AssertionError(f"train2d {name} launched "
+                                 f"{runs[name]['launches']}, want {want}")
+        if not (np.isfinite(runs[name]["metrics"]["total_loss"])
+                and runs[name]["metrics"]["num_dropped"] == 0):
+            raise AssertionError(f"train2d {name}: {runs[name]['metrics']}")
+    totals = dict.fromkeys(runs["dp"]["launches"], 0)
+    for name in ("2d_1x1", "2d_1xlocal2"):
+        for k in totals:
+            totals[k] += runs[name]["launches"][k]
+    return totals
+
+
+def phase_dryrun():
+    """``python -m splatformer_tpu_torch.dryrun_multichip`` under
+    ``torchrun --standalone --nproc_per_node=1`` in its own processes (its
+    NCCL group of one): the DP step, the sharded render's value and
+    gradient, the 2-D step with LocalShards(2), each finite."""
+    out, seconds = run_module(
+        "torch.distributed.run",
+        ["--standalone", "--nproc_per_node=1", "-m",
+         "splatformer_tpu_torch.dryrun_multichip"], timeout=300)
+    lines = [ln for ln in out.splitlines() if ln.startswith("dryrun")]
+    emit({"phase": "dryrun", "seconds": seconds, "lines": lines})
+    if not (len(lines) == 3 and all(" ok" in ln for ln in lines)):
+        raise AssertionError(f"dryrun_multichip printed: {out[-2000:]}")
+
+
+def run_parallel_phases():
+    """The four parallel phases in an NCCL group of one (destroyed before
+    the dry run's own processes start); returns the launches of the DP,
+    gauss_shard and train2d phases, summed."""
+    import shutil
+
+    import torch.distributed as dist
+    tmp = init_world_of_one()
+    try:
+        totals = phase_dp_training()
+        torch.cuda.empty_cache()
+        for more in (phase_dp_training(flash=True), phase_gauss_shard(),
+                     phase_train2d()):
+            torch.cuda.empty_cache()
+            for k in totals:
+                totals[k] += more[k]
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    phase_dryrun()
+    return totals
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2532,6 +3027,10 @@ def main():
     launches = phase_training(flash=True)  # the train step's flash path
     torch.cuda.empty_cache()
     loop_launches = phase_loop()  # the training entry point
+    torch.cuda.empty_cache()
+    t_parallel = time.perf_counter()
+    parallel_launches = run_parallel_phases()
+    parallel_seconds = time.perf_counter() - t_parallel
     torch.cuda.empty_cache()  # the factory's own process
     phase_fit_reference()
     phase_fit_kernels()
@@ -2540,7 +3039,8 @@ def main():
     phase_bench()
     emit({"phase": "total", "seconds": time.perf_counter() - t_start,
           "merge_phases_seconds": merge_seconds,
-          "diag_phases_seconds": diag_seconds})
+          "diag_phases_seconds": diag_seconds,
+          "parallel_phases_seconds": parallel_seconds})
     flash_src = "jax/experimental/pallas/ops/tpu/flash_attention.py"
     emit({"kernels": [{
         "name": "composite_fwd", "route": "cuda",
@@ -2551,6 +3051,7 @@ def main():
         "fit_launches": fit_launches["composite_fwd"],
         "merge_launches": merge_launches["composite_fwd"],
         "diag_launches": diag_launches["composite_fwd"],
+        "parallel_launches": parallel_launches["composite_fwd"],
         "max_abs_err": max(k1["max_abs_err_rgb"], k1["max_abs_err_T"]),
         "ms": k1["ms"], "plain_ms": k1["plain_ms"],
         "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
@@ -2563,6 +3064,7 @@ def main():
         "fit_launches": fit_launches["composite_bwd"],
         "merge_launches": merge_launches["composite_bwd"],
         "diag_launches": diag_launches["composite_bwd"],
+        "parallel_launches": parallel_launches["composite_bwd"],
         "max_abs_err": k2["max_abs_err"],
         "ms": k2["ms"], "plain_ms": k2["plain_ms"],
         "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
@@ -2571,12 +3073,13 @@ def main():
                  "splatformer_tpu_torch/csrc/attention_fwd.cu",
                  f"{flash_src}:342 (called at "
                  "splatformer_tpu/models/ptv3.py:118)", launches, k3,
-                 merge_launches, diag_launches, serving_flash),
+                 merge_launches, diag_launches, parallel_launches,
+                 serving_flash),
         k3_entry("attention_bwd",
                  "splatformer_tpu_torch/csrc/attention_bwd.cu",
                  f"{flash_src}:796 and :1146 (called at "
                  "splatformer_tpu/models/ptv3.py:118)", launches, k3_bwd,
-                 merge_launches, diag_launches)]})
+                 merge_launches, diag_launches, parallel_launches)]})
     smi = subprocess.run(
         ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],

@@ -20,8 +20,10 @@ class DatasetConfig:
     batch_size: int = 1
     accumulate_step: int = 1
     background_color: Tuple[int, int, int] = (0, 0, 0)
-    # host-side prefetch workers, read by the loop (the JAX package's
-    # ``cfg.dataset.get("num_workers", 0)``); above 0 is not ported yet
+    # host-side prefetch depth, read by the loop (the JAX package's
+    # ``cfg.dataset.get("num_workers", 0)``): above 0 a host thread loads
+    # that many batches ahead of the step (training/loop.py), as for every
+    # dataset
     num_workers: int = 0
 
 

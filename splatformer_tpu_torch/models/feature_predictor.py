@@ -18,7 +18,10 @@ In training the four serialization orders of PTv3 are shuffled (a
 permutation drawn from the caller's generator, or given), DropPath draws
 from the same generator, as do random_patch merging and random
 downsampling (or they take injected draws), and ``compute_dtype``
-(bfloat16) applies inside PTv3's blocks; the heads stay float32.
+(bfloat16) applies inside PTv3's blocks; the heads stay float32. With
+``bn_group`` (a torch.distributed process group) every masked BatchNorm
+of the backbone takes its training statistics over the group (the JAX
+package's ``bn_axis_name``).
 """
 from __future__ import annotations
 
@@ -84,6 +87,7 @@ class FeaturePredictor(nn.Module):
         backbone_kwargs: Optional[Dict[str, Any]] = None,
         compute_dtype: Optional[torch.dtype] = None,
         additional_info: Optional[Dict[str, Any]] = None,
+        bn_group=None,
     ):
         super().__init__()
         if output_features_type not in ("res", "dc"):
@@ -103,10 +107,10 @@ class FeaturePredictor(nn.Module):
         if backbone_type == "PT":
             self.backbone = PointTransformerV3(
                 in_channels=in_ch, compute_dtype=compute_dtype,
-                additional_info=self.additional_info,
+                additional_info=self.additional_info, bn_group=bn_group,
                 **(backbone_kwargs or {}))
         elif backbone_type == "SP":
-            self.backbone = SpUNet(in_channels=in_ch,
+            self.backbone = SpUNet(in_channels=in_ch, bn_group=bn_group,
                                    **(backbone_kwargs or {}))
         else:
             raise NotImplementedError(f"backbone_type {backbone_type!r}")
@@ -240,12 +244,14 @@ def init_weights(model: FeaturePredictor, generator: torch.Generator,
 
 def build_feature_predictor(cfg: ModelConfig, device: str = "cuda",
                             seed: int = 0, head_final_scale: float = 1.0,
-                            compute_dtype: Optional[str] = None
-                            ) -> FeaturePredictor:
+                            compute_dtype: Optional[str] = None,
+                            bn_group=None) -> FeaturePredictor:
     """FeaturePredictor from a ModelConfig (any of the JAX package's model
     configs: PTv3 with its merging and downsampling options, or SpUNet),
     seeded, in eval mode, on ``device``; ``compute_dtype="bfloat16"`` is
-    PTv3's block dtype in training. Unknown values raise."""
+    PTv3's block dtype in training; ``bn_group`` (a process group) syncs
+    the training BatchNorm statistics over it (models/layers.py). Unknown
+    values raise."""
     device = resolve_device(device)
     if cfg.output_head_type != "mlp-relu":
         raise NotImplementedError(
@@ -268,7 +274,7 @@ def build_feature_predictor(cfg: ModelConfig, device: str = "cuda",
         backbone_kwargs=backbone_kwargs,
         compute_dtype=(None if compute_dtype in (None, "float32")
                        else getattr(torch, compute_dtype)),
-        additional_info=cfg.additional_info)
+        additional_info=cfg.additional_info, bn_group=bn_group)
     init_weights(model, torch.Generator().manual_seed(seed),
                  zeroinit=cfg.zeroinit, head_final_scale=head_final_scale)
     return model.eval().to(device)

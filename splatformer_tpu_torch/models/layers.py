@@ -1,7 +1,8 @@
 """Shared layers (port of splatformer_tpu/models/layers.py): masked BatchNorm,
 per-point DropPath, the block MLP, and the compute-dtype Linear that the
-blocks use under bf16. Cross-replica statistics (SyncBN over DDP) come
-with the data-parallel slice (ROADMAP.md)."""
+blocks use under bf16. With a process group, masked BatchNorm's training
+statistics are the group's (the JAX package's ``axis_name``), the
+pjit-native SyncBN of the data-parallel step."""
 from __future__ import annotations
 
 from typing import Optional
@@ -9,6 +10,9 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from splatformer_tpu_torch.parallel.collectives import (AllReduceSum,
+                                                        group_size)
 
 
 def linear(mod: nn.Linear, x: torch.Tensor,
@@ -32,14 +36,23 @@ class MaskedBatchNorm(nn.Module):
     Parameters ``scale``/``bias`` and buffers ``mean``/``var`` keep the
     JAX package's names; the output has the input's dtype. ``off`` (the
     ``turn_off_bn`` configurations) makes it the identity, with no
-    parameters or statistics."""
+    parameters or statistics.
+
+    ``group`` (a torch.distributed process group, the JAX module's
+    ``axis_name``) of more than one process makes the training statistics
+    the group's: each process's (count, count * mean, count * E[x^2])
+    summed in one differentiable all-reduce, so each is weighted by its
+    valid count, and the running update uses the group's count. With no
+    group, or a group of one, the local statistics are computed as
+    without a group."""
 
     def __init__(self, channels: int, eps: float = 1e-3,
-                 momentum: float = 0.01, off: bool = False):
+                 momentum: float = 0.01, off: bool = False, group=None):
         super().__init__()
         self.eps = eps
         self.momentum = momentum
         self.off = off
+        self.group = group
         if off:
             return
         self.scale = nn.Parameter(torch.ones(channels))
@@ -57,6 +70,16 @@ class MaskedBatchNorm(nn.Module):
             cnt = torch.clamp(torch.sum(m), min=1.0)
             mean = torch.sum(x * m, dim=0) / cnt
             var = torch.sum(torch.square(x - mean) * m, dim=0) / cnt
+            if group_size(self.group) > 1:
+                # splatformer_tpu/models/layers.py:53-61: the E[x^2] trick
+                # for a single sum over the group
+                tot = AllReduceSum.apply(torch.cat(
+                    [cnt[None], mean * cnt, (var + torch.square(mean)) * cnt]),
+                    self.group)
+                c = mean.shape[0]
+                cnt = tot[0]
+                mean = tot[1:1 + c] / cnt
+                var = tot[1 + c:] / cnt - torch.square(mean)
             with torch.no_grad():
                 unbiased = var * cnt / torch.clamp(cnt - 1.0, min=1.0)
                 mom = self.momentum

@@ -176,7 +176,8 @@ class Block(nn.Module):
                  order_index: int, drop_path: float, mlp_ratio: float = 4.0,
                  compute_dtype: Optional[torch.dtype] = None,
                  use_flash: bool = False, turn_off_bn: bool = False,
-                 additional_info: Optional[Dict[str, Any]] = None):
+                 additional_info: Optional[Dict[str, Any]] = None,
+                 bn_group=None):
         super().__init__()
         c = channels
         self.compute_dtype = compute_dtype
@@ -189,7 +190,7 @@ class Block(nn.Module):
         self.cpe_conv_kernel = nn.Parameter(torch.empty(27, c, c))
         self.cpe_conv_bias = nn.Parameter(torch.zeros(c))
         self.cpe_linear = nn.Linear(c, c)
-        self.cpe_norm = MaskedBatchNorm(c, off=turn_off_bn)
+        self.cpe_norm = MaskedBatchNorm(c, off=turn_off_bn, group=bn_group)
         self.norm1 = nn.LayerNorm(c, eps=LN_EPS)
         self.attn = SerializedAttention(c, num_heads, patch_size, order_index,
                                         use_flash, additional_info)
@@ -245,11 +246,12 @@ class SerializedPooling(nn.Module):
     (waste bucket = child_capacity) for unpooling."""
 
     def __init__(self, in_channels: int, out_channels: int, stride: int,
-                 turn_off_bn: bool = False):
+                 turn_off_bn: bool = False, bn_group=None):
         super().__init__()
         self.pooling_depth = max(0, int(math.ceil(math.log2(stride))))
         self.proj = nn.Linear(in_channels, out_channels)
-        self.norm = MaskedBatchNorm(out_channels, off=turn_off_bn)
+        self.norm = MaskedBatchNorm(out_channels, off=turn_off_bn,
+                                    group=bn_group)
 
     def forward(self, pb: PointBatch, child_capacity: int
                 ) -> Tuple[PointBatch, torch.Tensor]:
@@ -307,12 +309,15 @@ class SerializedUnpooling(nn.Module):
     projected skip; waste-bucket clusters contribute zero."""
 
     def __init__(self, in_channels: int, skip_channels: int,
-                 out_channels: int, turn_off_bn: bool = False):
+                 out_channels: int, turn_off_bn: bool = False,
+                 bn_group=None):
         super().__init__()
         self.proj = nn.Linear(in_channels, out_channels)
-        self.proj_norm = MaskedBatchNorm(out_channels, off=turn_off_bn)
+        self.proj_norm = MaskedBatchNorm(out_channels, off=turn_off_bn,
+                                         group=bn_group)
         self.proj_skip = nn.Linear(skip_channels, out_channels)
-        self.proj_skip_norm = MaskedBatchNorm(out_channels, off=turn_off_bn)
+        self.proj_skip_norm = MaskedBatchNorm(out_channels, off=turn_off_bn,
+                                              group=bn_group)
 
     def forward(self, child: PointBatch, parent: PointBatch,
                 cluster: torch.Tensor) -> PointBatch:
@@ -356,6 +361,7 @@ class PointTransformerV3(nn.Module):
         turn_off_bn: bool = False,
         embedding_type: str = "MLP",
         additional_info: Optional[Dict[str, Any]] = None,
+        bn_group=None,
     ):
         super().__init__()
         num_stages = len(enc_depths)
@@ -381,15 +387,16 @@ class PointTransformerV3(nn.Module):
             self.embed_conv_bias = nn.Parameter(torch.zeros(enc_channels[0]))
         else:
             raise NotImplementedError(f"embedding_type {embedding_type!r}")
-        self.embed_norm = MaskedBatchNorm(enc_channels[0], off=turn_off_bn)
+        self.embed_norm = MaskedBatchNorm(enc_channels[0], off=turn_off_bn,
+                                          group=bn_group)
         block_kw = dict(mlp_ratio=mlp_ratio, compute_dtype=compute_dtype,
                         use_flash=use_flash, turn_off_bn=turn_off_bn,
-                        additional_info=additional_info)
+                        additional_info=additional_info, bn_group=bn_group)
         for s in range(num_stages):
             if s > 0:
                 self.add_module(f"enc{s}_down", SerializedPooling(
                     enc_channels[s - 1], enc_channels[s], stride[s - 1],
-                    turn_off_bn))
+                    turn_off_bn, bn_group))
             dps = enc_dp[sum(enc_depths[:s]):sum(enc_depths[:s + 1])]
             for i in range(enc_depths[s]):
                 self.add_module(f"enc{s}_block{i}", Block(
@@ -398,7 +405,8 @@ class PointTransformerV3(nn.Module):
         dec_ch = list(dec_channels) + [enc_channels[-1]]
         for s in reversed(range(num_stages - 1)):
             self.add_module(f"dec{s}_up", SerializedUnpooling(
-                dec_ch[s + 1], enc_channels[s], dec_ch[s], turn_off_bn))
+                dec_ch[s + 1], enc_channels[s], dec_ch[s], turn_off_bn,
+                bn_group))
             dps = dec_dp[sum(dec_depths[:s]):sum(dec_depths[:s + 1])][::-1]
             for i in range(dec_depths[s]):
                 self.add_module(f"dec{s}_block{i}", Block(

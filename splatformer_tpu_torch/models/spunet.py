@@ -29,14 +29,15 @@ class SparseConvBlock(nn.Module):
     """Residual 3^3 submanifold conv block: conv-BN-ReLU-conv-BN, plus the
     input (through a Linear ``shortcut`` when the width changes), ReLU."""
 
-    def __init__(self, in_channels: int, channels: int):
+    def __init__(self, in_channels: int, channels: int, bn_group=None):
         super().__init__()
         for j, cin in enumerate((in_channels, channels)):
             self.register_parameter(f"conv{j}_kernel", nn.Parameter(
                 torch.empty(27, cin, channels)))
             self.register_parameter(f"conv{j}_bias", nn.Parameter(
                 torch.zeros(channels)))
-            self.add_module(f"norm{j}", MaskedBatchNorm(channels))
+            self.add_module(f"norm{j}", MaskedBatchNorm(channels,
+                                                        group=bn_group))
         self.shortcut = (nn.Linear(in_channels, channels)
                          if in_channels != channels else None)
 
@@ -62,33 +63,33 @@ class SpUNet(nn.Module):
                  dec_depths: Sequence[int] = (1, 1, 1),
                  stride: Sequence[int] = (2, 2, 2),
                  pool_capacity_factors: Sequence[float] = (0.75, 0.625, 0.5),
-                 output_dim: int = 96):
+                 output_dim: int = 96, bn_group=None):
         super().__init__()
         num_stages = len(channels)
         self.depths, self.dec_depths = tuple(depths), tuple(dec_depths)
         self.pool_capacity_factors = tuple(pool_capacity_factors)
         self.out_channels = output_dim
         self.stem = nn.Linear(in_channels, base_channels)
-        self.stem_norm = MaskedBatchNorm(base_channels)
+        self.stem_norm = MaskedBatchNorm(base_channels, group=bn_group)
         cur, widths = base_channels, []
         for s in range(num_stages):
             if s > 0:
                 self.add_module(f"enc{s}_down", SerializedPooling(
-                    cur, channels[s], stride[s - 1]))
+                    cur, channels[s], stride[s - 1], bn_group=bn_group))
                 cur = channels[s]
             for i in range(depths[s]):
                 self.add_module(f"enc{s}_block{i}",
-                                SparseConvBlock(cur, channels[s]))
+                                SparseConvBlock(cur, channels[s], bn_group))
                 cur = channels[s]
             widths.append(cur)
         dec_ch = list(dec_channels) + [channels[-1]]
         for s in reversed(range(num_stages - 1)):
             self.add_module(f"dec{s}_up", SerializedUnpooling(
-                cur, widths[s], dec_ch[s]))
+                cur, widths[s], dec_ch[s], bn_group=bn_group))
             cur = dec_ch[s]
             for i in range(dec_depths[s]):
                 self.add_module(f"dec{s}_block{i}",
-                                SparseConvBlock(cur, dec_ch[s]))
+                                SparseConvBlock(cur, dec_ch[s], bn_group))
         self.head = nn.Linear(cur, output_dim)
 
     def forward(self, pb: PointBatch) -> torch.Tensor:

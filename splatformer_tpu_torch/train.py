@@ -22,8 +22,15 @@
     python -m splatformer_tpu_torch.train --model ptv3_tome --merge_rate 0.5 \\
         --only_eval --output_dir output/smoke
 
+    # scene data parallelism over 2 processes (gloo on the CPU, NCCL on
+    # one card a process)
+    torchrun --nproc_per_node=2 -m splatformer_tpu_torch.train --cpu \\
+        --output_dir output/dp ...
+
 Runs on the card unless ``--cpu`` is given; without ``--cpu`` and without a
-card it exits with status 1. ``--save_viewer`` (eval-only) writes each
+card it exits with status 1. Under torchrun every process trains and
+scores its own scenes, and rank 0 writes the run's files
+(training/loop.py). ``--save_viewer`` (eval-only) writes each
 test scene's SIBR viewer folder and input-vs-refined ``viewer.html``
 under ``<output_dir>/<eval_subdir>/<dataset>/viewer/<scene>/``.
 """
@@ -69,6 +76,22 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         return 1
     device = torch.device("cpu" if args.cpu else "cuda")
 
+    import torch.distributed as dist
+
+    from splatformer_tpu_torch.parallel.distributed import (
+        maybe_initialize_distributed)
+    joined = not dist.is_initialized()
+    rank, _ = maybe_initialize_distributed(device)
+    joined = joined and dist.is_initialized()
+    try:
+        return _run(args, device, rank)
+    finally:
+        if joined:  # the group torchrun described, left as it was found
+            dist.destroy_process_group()
+
+
+def _run(args: argparse.Namespace, device: torch.device, rank: int) -> int:
+
     from splatformer_tpu_torch.configs import build_full_config
     from splatformer_tpu_torch.models.feature_predictor import (
         build_feature_predictor)
@@ -90,7 +113,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         cfg.model.additional_info["r"] = args.merge_rate
 
     os.makedirs(args.output_dir, exist_ok=True)
-    logger = get_logger(os.path.join(args.output_dir, "train.log"))
+    log_name = "train.log" if rank == 0 else f"train.rank{rank}.log"
+    logger = get_logger(os.path.join(args.output_dir, log_name))
     logger.info("device: %s", torch.cuda.get_device_name(device)
                 if device.type == "cuda" else "cpu")
 
@@ -141,8 +165,9 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             logger.info("input 3DGS %s: %s", name,
                         " ".join(f"{k}={v:.4f}"
                                  for k, v in metrics_input.items()))
-        log_result_csv("eval.csv", name, metrics, algo=algo, r=r,
-                       max_mem=max_mem)
+        if rank == 0:
+            log_result_csv("eval.csv", name, metrics, algo=algo, r=r,
+                           max_mem=max_mem)
     return 0
 
 

@@ -7,17 +7,23 @@ config.json.
 
 Data comes from the synthetic scenes or from scene folders
 (data/dataset.py:SplatfactoScenes, written by the data factory), with a
-host prefetch thread when ``num_workers`` > 0. One process on one device:
-the loaders shard scenes by torch.distributed's rank and world size when
-it is initialised, but the JAX package's cross-process metric reduction is
-the plain per-image mean here, and file names keep its ``rank0``. There is
-no TensorBoard: history.json and train.log carry the scalars.
+host prefetch thread when ``num_workers`` > 0. One process a device: under
+torchrun (parallel/distributed.py) every process trains its own scenes on
+its own device, the train step averages the gradients over the data mesh
+(training/train_step.py) with synced masked BatchNorm, each process scores
+its own test scenes, writes ``metrics.rank{r}.json`` and the metrics are
+reduced across processes (reduce_metric_sums); checkpoints, history.json,
+best.json, eval.csv, config.json and the train images are written by rank
+0 alone, and the others wait at barriers that every rank reaches. The
+generator is seeded anew each step from (seed, data index, step). There
+is no TensorBoard: history.json and train.log carry the scalars.
 ``evaluation(save_viewer=True)`` writes each scene's SIBR viewer folder
 (utils/viewer.py) and an input-vs-refined ``viewer.html``
 (utils/webviewer.py), as the JAX package's.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import time
@@ -25,6 +31,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from splatformer_tpu_torch.data.synthetic import orbit_cameras, random_scene
 from splatformer_tpu_torch.device import resolve_device
@@ -34,6 +41,10 @@ from splatformer_tpu_torch.models.lpips import make_lpips_fn
 from splatformer_tpu_torch.ops.render import render_images
 from splatformer_tpu_torch.ops.sh import C0
 from splatformer_tpu_torch.ops.types import RasterizeConfig
+from splatformer_tpu_torch.parallel.distributed import (
+    maybe_initialize_distributed, process_rank, reduce_metric_sums,
+    sync_processes)
+from splatformer_tpu_torch.parallel.mesh import make_mesh, replicate_to_mesh
 from splatformer_tpu_torch.training import checkpoints as ckpt_lib
 from splatformer_tpu_torch.training.checkpoints import TrainState
 from splatformer_tpu_torch.training.metrics import MetricComputer
@@ -95,7 +106,8 @@ def make_synthetic_data(ds_cfg, rcfg: RasterizeConfig, device="cuda"):
     The live Gaussians are the JAX package's at any ``pad_to``; scenes
     then hold ``max(pad_to, n_gaussians)`` slots, the rest masked zeros
     (the JAX package's scene loaders pad so; its synthetic scenes are not
-    padded)."""
+    padded). Process r of W trains scenes r, r + W, ... (the JAX
+    package's data rows) and scores test scenes i with i % W == r."""
     device = resolve_device(device)
     background = torch.as_tensor(ds_cfg.background_color,
                                  dtype=torch.float32).to(device) / 255.0
@@ -105,25 +117,19 @@ def make_synthetic_data(ds_cfg, rcfg: RasterizeConfig, device="cuda"):
                                    rcfg, background)
              for i in range(ds_cfg.n_scenes)]
 
+    index, count = process_rank()
+
     def train_iter():
         i = 0
         while True:
-            yield pairs[i % len(pairs)]
-            i += 1
+            yield pairs[(i + index) % len(pairs)]
+            i += count
 
     def test_scenes():
-        return [(f"scene{i}", pairs[i]) for i in range(min(4, len(pairs)))]
+        return [(f"scene{i}", pairs[i]) for i in range(min(4, len(pairs)))
+                if i % count == index]
 
     return train_iter(), {"synthetic": test_scenes}
-
-
-def process_rank() -> Tuple[int, int]:
-    """(index, count) of this process: torch.distributed's rank and world
-    size when it is initialised, else (0, 1)."""
-    import torch.distributed as dist
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_rank(), dist.get_world_size()
-    return 0, 1
 
 
 def make_splatfacto_data(ds_cfg, device="cuda"):
@@ -259,7 +265,8 @@ def evaluation(model: FeaturePredictor, scene_list, rcfg: RasterizeConfig,
     image.
 
     Returns (metrics, metrics_input, peak_mem_mb); metrics are per-image
-    means over the list."""
+    means over the scenes of every process (reduce_metric_sums), each
+    process's own in ``metrics.rank{r}.json``. Every process calls it."""
     os.makedirs(output_dir, exist_ok=True)
     mc = MetricComputer(lpips_fn)
     mc_input = MetricComputer(lpips_fn) if compare_with_input else None
@@ -299,18 +306,16 @@ def evaluation(model: FeaturePredictor, scene_list, rcfg: RasterizeConfig,
             export_scene_viewer(model, batch, os.path.join(
                 output_dir, "viewer", str(name)), name)
 
-    mc.write_to_file(os.path.join(output_dir, "metrics.rank0.json"))
+    rank = process_rank()[0]
+    mc.write_to_file(os.path.join(output_dir, f"metrics.rank{rank}.json"))
     n_images = float(sum(arr.size for arr in
                          next(iter(mc.results.values()), [])))
-
-    def means(sums):
-        return {k: v / max(n_images, 1.0) for k, v in sums.items()}
-    metrics = means(mc.sum())
+    metrics = reduce_metric_sums(mc.sum(), n_images)
     metrics_input = {}
     if compare_with_input:
-        mc_input.write_to_file(os.path.join(output_dir,
-                                            "metrics_input.rank0.json"))
-        metrics_input = means(mc_input.sum())
+        mc_input.write_to_file(os.path.join(
+            output_dir, f"metrics_input.rank{rank}.json"))
+        metrics_input = reduce_metric_sums(mc_input.sum(), n_images)
     return (metrics, metrics_input,
             device_peak_memory_mb(next(model.parameters()).device))
 
@@ -334,19 +339,48 @@ def build_train_state(cfg, model: FeaturePredictor, device) -> TrainState:
     return TrainState(model=model, optimizer=optimizer, generator=generator)
 
 
+def step_seed(seed: int, data_index: int, step: int) -> int:
+    """The generator's seed for one micro-step of one data row (the JAX
+    package's ``fold_in(fold_in(rng, axis_index(DATA_AXIS)), step)``):
+    members of a gauss group share it, data rows and steps do not."""
+    return int(np.random.SeedSequence([seed, data_index, step])
+               .generate_state(1, np.uint64)[0] >> 1)
+
+
+def _agree_on_budgets(rcfg: RasterizeConfig) -> RasterizeConfig:
+    """Every process's calibrated budgets raised to the largest any process
+    measured, so that all render with one configuration."""
+    if process_rank()[1] == 1:
+        return rcfg
+    t = torch.tensor([rcfg.max_intersects, rcfg.tiles_per_gauss,
+                      *rcfg.tiers], dtype=torch.int64)
+    if dist.get_backend() == "nccl":
+        t = t.cuda()
+    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    v = [int(x) for x in t.cpu()]
+    return dataclasses.replace(rcfg, max_intersects=v[0],
+                               tiles_per_gauss=v[1], tiers=tuple(v[2:]))
+
+
 def run_training(cfg, output_dir: str, max_steps: Optional[int] = None,
                  device="cuda"):
     """Train ``cfg`` into ``output_dir``, resuming from its newest
-    checkpoint when there is one. Returns (state, model, test_factories,
-    rcfg, lpips_fn)."""
+    checkpoint when there is one; under torchrun, as one process of a
+    data-parallel run (the module docstring). Returns (state, model,
+    test_factories, rcfg, lpips_fn)."""
     device = resolve_device(device)
+    rank, world = maybe_initialize_distributed(device)
+    lead = rank == 0
     os.makedirs(output_dir, exist_ok=True)
-    logger = get_logger(os.path.join(output_dir, "train.log"))
+    logger = get_logger(os.path.join(
+        output_dir, "train.log" if lead else f"train.rank{rank}.log"))
     rcfg = RasterizeConfig()
+    mesh = make_mesh() if world > 1 else None
 
     model = build_feature_predictor(
         cfg.model, device=device, seed=cfg.train.seed,
-        compute_dtype="bfloat16" if cfg.train.bf16 else None)
+        compute_dtype="bfloat16" if cfg.train.bf16 else None,
+        bn_group=mesh.data_group if mesh else None)
     if getattr(cfg.dataset, "synthetic", False):
         train_iter, test_factories = make_synthetic_data(cfg.dataset, rcfg,
                                                          device)
@@ -358,8 +392,8 @@ def run_training(cfg, output_dir: str, max_steps: Optional[int] = None,
         # two more (augmented) batches, so the measured tile statistics see
         # the corruption floaters that training renders
         extra = [next(train_iter) for _ in range(2)]
-        rcfg = calibrate_from_data(first, test_factories, rcfg, logger,
-                                   extra_batches=extra)
+        rcfg = _agree_on_budgets(calibrate_from_data(
+            first, test_factories, rcfg, logger, extra_batches=extra))
     state = build_train_state(cfg, model, device)
     if cfg.dataset.num_workers > 0:
         # host prefetch (the reference DataLoader's num_workers): scene
@@ -393,6 +427,10 @@ def run_training(cfg, output_dir: str, max_steps: Optional[int] = None,
         # from weights without optimizer state
         state.step = int(cfg.train.resume_from_step)
         logger.info("resume_from_step: step counter set to %d", state.step)
+    if mesh is not None:
+        # every process starts from rank 0's weights and statistics (the
+        # seeded init and the files every process reads agree already)
+        replicate_to_mesh(list(model.state_dict().values()), mesh)
 
     lpips_fn = make_lpips_fn(cfg.train.lpips_weights_path, device)
     lpips_w = cfg.train.lpips_loss_weight if lpips_fn is not None else 0.0
@@ -403,14 +441,15 @@ def run_training(cfg, output_dir: str, max_steps: Optional[int] = None,
     step_fn = make_train_step(
         model, state.optimizer, rcfg,
         image_l1_loss_weight=cfg.train.image_l1_loss_weight,
-        lpips_loss_weight=lpips_w, lpips=lpips_fn)
+        lpips_loss_weight=lpips_w, lpips=lpips_fn, mesh=mesh)
     pretrain_steps = cfg.train.pretrain_steps
     pretrain_fn = (make_train_step(model, state.optimizer, rcfg,
-                                   pretrain=True)
+                                   pretrain=True, mesh=mesh)
                    if pretrain_steps > 0 else None)
 
-    with open(os.path.join(output_dir, "config.json"), "w") as f:
-        f.write(cfg.to_json(indent=2))
+    if lead:
+        with open(os.path.join(output_dir, "config.json"), "w") as f:
+            f.write(cfg.to_json(indent=2))
 
     total = max_steps if max_steps is not None else cfg.train.total_steps
     accum = cfg.dataset.accumulate_step
@@ -426,14 +465,21 @@ def run_training(cfg, output_dir: str, max_steps: Optional[int] = None,
         # directory must not inherit the previous run's best PSNR
         with open(best_path) as f:
             best = json.load(f)
-    _dedupe_eval_csv(os.path.join(output_dir, "eval.csv"), resume_step)
+    if lead:
+        _dedupe_eval_csv(os.path.join(output_dir, "eval.csv"), resume_step)
+    # every process has read the checkpoints and best.json before rank 0
+    # writes again
+    sync_processes("start")
+    data_index = mesh.data_index if mesh else 0
     for step in range(state.step, total * accum):
         opt_step = step // accum
         fn = pretrain_fn if (pretrain_fn is not None
                              and opt_step < pretrain_steps) else step_fn
+        state.generator.manual_seed(step_seed(cfg.train.seed + 1,
+                                              data_index, step))
         metrics = fn(batch, state.generator)
         state.step += 1
-        if (log_image_interval and step % accum == 0
+        if (lead and log_image_interval and step % accum == 0
                 and opt_step % log_image_interval == 0):
             # periodic train-scene render (reference train.py:317-325)
             pred = make_eval_step(model, rcfg)(batch)[0]
@@ -454,34 +500,42 @@ def run_training(cfg, output_dir: str, max_steps: Optional[int] = None,
         if (step % accum == 0 and cfg.train.eval_interval > 0
                 and opt_step > 0 and opt_step % cfg.train.eval_interval == 0):
             # flush history at every eval so interrupted runs keep it
-            with open(os.path.join(output_dir, "history.json"), "w") as f:
-                json.dump(history, f)
+            if lead:
+                with open(os.path.join(output_dir, "history.json"), "w") as f:
+                    json.dump(history, f)
             results = _run_evals(model, test_factories, rcfg, output_dir,
                                  opt_step, logger, lpips_fn)
-            # best-checkpoint tracking on the first test set's PSNR
+            # best-checkpoint tracking on the first test set's PSNR (the
+            # reduced metrics: every process takes the same branch)
             first_set = next(iter(results.values()), None)
             held_psnr = first_set[0].get("psnr") if first_set else None
             if held_psnr is not None and held_psnr > best["psnr"]:
                 best = {"step": opt_step, "psnr": float(held_psnr)}
-                ckpt_lib.save_checkpoint(
-                    os.path.join(output_dir, "checkpoints_best"), state,
-                    opt_step)
-                with open(best_path, "w") as f:
-                    json.dump(best, f)
+                if lead:
+                    ckpt_lib.save_checkpoint(
+                        os.path.join(output_dir, "checkpoints_best"), state,
+                        opt_step)
+                    with open(best_path, "w") as f:
+                        json.dump(best, f)
                 logger.info("new best held-out psnr %.4f at step %d",
                             best["psnr"], opt_step)
             t_last, step_last = time.time(), step + 1  # clean window
         if step % accum == 0 and (opt_step + 1) % cfg.train.save_interval == 0:
-            ckpt_lib.save_checkpoint(ckpt_dir, state, opt_step)
+            if lead:
+                ckpt_lib.save_checkpoint(ckpt_dir, state, opt_step)
+            sync_processes("save")
             logger.info("saved checkpoint at step %d", opt_step)
             t_last, step_last = time.time(), step + 1
         batch = next(train_iter)
 
-    if ckpt_lib.latest_step(ckpt_dir) != total:
-        ckpt_lib.save_checkpoint(ckpt_dir, state, total)
-    if history or not os.path.exists(os.path.join(output_dir, "history.json")):
-        with open(os.path.join(output_dir, "history.json"), "w") as f:
-            json.dump(history, f)
+    if lead:
+        if ckpt_lib.latest_step(ckpt_dir) != total:
+            ckpt_lib.save_checkpoint(ckpt_dir, state, total)
+        if history or not os.path.exists(os.path.join(output_dir,
+                                                      "history.json")):
+            with open(os.path.join(output_dir, "history.json"), "w") as f:
+                json.dump(history, f)
+    sync_processes("end")
     return state, model, test_factories, rcfg, lpips_fn
 
 
@@ -512,7 +566,7 @@ def _dedupe_eval_csv(csv_path: str, resume_step: int):
 def _run_evals(model, test_factories, rcfg, output_dir, opt_step, logger,
                lpips_fn):
     """Periodic eval over every test set; always scores the input scenes
-    beside the refined ones and appends a run-local eval.csv row
+    beside the refined ones, and rank 0 appends a run-local eval.csv row
     (reference protocol: step-0 input eval + final compare,
     train.py:97-98,327-334)."""
     results = {}
@@ -530,6 +584,8 @@ def _run_evals(model, test_factories, rcfg, output_dir, opt_step, logger,
                     " ".join(f"{k}={v:.4f}" for k, v in metrics_in.items()),
                     max_mem)
         results[name] = (metrics, metrics_in)
+        if process_rank()[0] != 0:
+            continue
         new = not os.path.exists(csv_path)
         with open(csv_path, "a") as f:
             if new:

@@ -3,14 +3,18 @@
 Train: refine one scene with the FeaturePredictor in train mode, render
 its views (the compositing backward is the K2 kernel), L1 (+ LPIPS) loss,
 backward, one optimizer step. Eval: refine, render, score. One scene per
-call on one device; the JAX package's shard_map and gradient pmean over a
-device mesh become DDP in a later slice (ROADMAP.md).
+call and process. With a ``mesh`` (parallel/mesh.py) the train step is the
+JAX package's data-parallel step: after the backward the gradients and the
+metrics are averaged over the mesh's data group (its ``pmean``, as one
+all-reduce of a flat buffer), then the optimizer (clip, Adam) steps on the
+average. Each process scores its own scenes in evaluation.
 """
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Callable, Dict, Iterable, Optional, Sequence, Tuple
+from typing import (Callable, Dict, Iterable, List, Optional, Sequence,
+                    Tuple)
 
 import torch
 
@@ -19,6 +23,8 @@ from splatformer_tpu_torch.models.lpips import LPIPS
 from splatformer_tpu_torch.ops.render import render_images_stats
 from splatformer_tpu_torch.ops.types import (Camera, GaussianScene,
                                              RasterizeConfig)
+from splatformer_tpu_torch.parallel.collectives import (all_reduce_mean_,
+                                                        scalars_mean)
 from splatformer_tpu_torch.training.metrics import psnr, ssim
 from splatformer_tpu_torch.training.optim import ChainOptimizer
 
@@ -62,6 +68,24 @@ PRETRAIN_ATTRS = ("means", "scales", "quats", "opacities", "features_dc",
                   "features_rest")
 
 
+def trainable_grads(model: torch.nn.Module) -> List[torch.Tensor]:
+    """Every trainable parameter's gradient, zeros where the backward left
+    none (the optimizer reads a missing gradient as zeros too), so that
+    every process reduces the same tensors."""
+    params = [p for p in model.parameters() if p.requires_grad]
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    return [p.grad for p in params]
+
+
+def reduce_gradients(model: torch.nn.Module, group) -> None:
+    """``pmean`` of the gradients over ``group``, in place: one flat buffer
+    per dtype, one SUM, one division by the group's size."""
+    if group is not None:
+        all_reduce_mean_(trainable_grads(model), group)
+
+
 def make_train_step(model: FeaturePredictor, optimizer: ChainOptimizer,
                     raster_config: RasterizeConfig = RasterizeConfig(),
                     image_l1_loss_weight: float = 1.0,
@@ -69,7 +93,7 @@ def make_train_step(model: FeaturePredictor, optimizer: ChainOptimizer,
                     lpips: Optional[LPIPS] = None,
                     pretrain: bool = False,
                     pretrain_attrs: Sequence[str] = PRETRAIN_ATTRS,
-                    ) -> Callable[..., Dict[str, torch.Tensor]]:
+                    mesh=None) -> Callable[..., Dict[str, torch.Tensor]]:
     """Returns step(batch, generator=None, order_perm=None,
     merge_scores=None, downsample_scores=None) -> metrics.
 
@@ -82,7 +106,10 @@ def make_train_step(model: FeaturePredictor, optimizer: ChainOptimizer,
     (per-attribute L1 of the refined against the input attributes over
     valid points, no rendering) ``pretrain_loss`` and ``pretrain/<attr>``.
     LPIPS is on when its weight is positive and a model is given; its
-    parameters are frozen."""
+    parameters are frozen. With ``mesh`` the gradients and the metrics are
+    averaged over ``mesh.data_group`` before the optimizer steps (build the
+    model with ``bn_group=mesh.data_group`` for the JAX package's synced
+    BatchNorm)."""
     use_lpips = lpips is not None and lpips_loss_weight > 0
     if use_lpips:
         lpips.requires_grad_(False)
@@ -126,6 +153,9 @@ def make_train_step(model: FeaturePredictor, optimizer: ChainOptimizer,
                 metrics["lpips"] = lp.detach()
         metrics["total_loss"] = loss.detach()
         loss.backward()
+        if mesh is not None:
+            reduce_gradients(model, mesh.data_group)
+            metrics = scalars_mean(metrics, mesh.data_group)
         optimizer.step()
         return metrics
 
