@@ -7,9 +7,10 @@ Phases, each printing one JSON line:
   build     compile every CUDA kernel from csrc/ (one nvcc per source, all
             started together, sm_90a), then read the K3 libraries with
             cuobjdump: each kernel's registers a thread and its counts of
-            HMMA (tensor-core), MUFU.EX2, LDSM and LDS.128 instructions;
-            fails if a bfloat16 K3 kernel has no HMMA or the float32
-            forward no HMMA.1688.F32.TF32, so the tensor cores are on the
+            HMMA (tensor-core), MUFU.EX2, LDSM and LDS.128 instructions,
+            its stack and local (spill) bytes; fails if a bfloat16 K3
+            kernel has no HMMA or a float32 one (forward, dQ and dK/dV
+            passes) no HMMA.1688.F32.TF32, so the tensor cores are on the
             path;
   k1        the compositing forward K1 against its plain PyTorch version on
             the entries that the port's own binning makes for a
@@ -125,6 +126,10 @@ Phases, each printing one JSON line:
   training_flash  the same with enable_flash (patch 1024): K1 and K2 once,
             K3-fwd and K3-bwd 22 times each per step; the kernels line's
             ``launches``;
+  training_flash_f32  the same in float32 (train.bf16 off, as
+            training/loop.py builds the model then): K3-fwd and K3-bwd 22
+            times each per step in float32 (the split-TF32 kernels); the
+            ``launches`` of the kernels line's float32 K3-bwd entry;
   loop      the training entry point, training/loop.py:run_training, on
             the card: PTv3-base at full width, bf16, the synthetic dataset
             at 2 scenes of 100k Gaussians (padded to 100352) x 4 views at
@@ -325,10 +330,11 @@ SASS_COUNTED = {"hmma": "HMMA", "hmma_tf32": "HMMA.1688.F32.TF32",
 
 def k3_resources(paths):
     """{(pass, type, d): {"hmma": n, "mufu_ex2": n, "ldsm": n,
-    "instructions": n, "registers": r}} of every K3 kernel in the built
-    attention libraries, from cuobjdump: counts of SASS instructions (all,
-    and of SASS_COUNTED, static: a loop body counts once per copy the
-    compiler made) and its registers a thread."""
+    "instructions": n, "registers": r, "stack_bytes": b, "local_bytes":
+    b}} of every K3 kernel in the built attention libraries, from
+    cuobjdump: counts of SASS instructions (all, and of SASS_COUNTED,
+    static: a loop body counts once per copy the compiler made), its
+    registers a thread and its stack and local (spill) bytes a thread."""
     from splatformer_tpu_torch.kernels.build import nvcc_path
     tool = str(nvcc_path().resolve().with_name("cuobjdump"))
     found = {}
@@ -358,7 +364,12 @@ def k3_resources(paths):
                 continue
             regs = re.search(r"REG:(\d+)", line)
             if key and regs:
-                found.setdefault(key, {})["registers"] = int(regs.group(1))
+                r = found.setdefault(key, {})
+                r["registers"] = int(regs.group(1))
+                for k, field in (("stack_bytes", "STACK"),
+                                 ("local_bytes", "LOCAL")):
+                    m = re.search(field + r":(\d+)", line)
+                    r[k] = int(m.group(1)) if m else None
                 key = None
     return found
 
@@ -387,8 +398,8 @@ def phase_build():
                 if t == "bf16" and r["hmma"] == 0:
                     raise AssertionError(f"bf16 K3 {p} d{d} has no HMMA "
                                          "instruction: no tensor cores")
-                if (p, t) == ("fwd", "f32") and r["hmma_tf32"] == 0:
-                    raise AssertionError(f"f32 K3 fwd d{d} has no "
+                if t == "f32" and r["hmma_tf32"] == 0:
+                    raise AssertionError(f"f32 K3 {p} d{d} has no "
                                          "HMMA.1688.F32.TF32 instruction: "
                                          "no tensor cores")
     return res
@@ -695,16 +706,20 @@ def phase_k3(resources, backward=False):
             ops_ms, bytes_ms, flops, exps, nbytes, fp32_pipe_ms = k3_bound(
                 b, h, d, dtype, backward)
             t = "bf16" if dtype == torch.bfloat16 else "f32"
-            regs = ({"dq": resources[("bwd_dq", t, d)]["registers"],
-                     "dkv": resources[("bwd_dkv", t, d)]["registers"]}
-                    if backward else resources[("fwd", t, d)]["registers"])
+
+            def res(field):  # phase_build's reading of this class's kernels
+                if backward:
+                    return {p: resources[(f"bwd_{p}", t, d)][field]
+                            for p in ("dq", "dkv")}
+                return resources[("fwd", t, d)][field]
             if t == "f32":
                 extra["fp32_pipe_ms"] = fp32_pipe_ms
             row = {"phase": name, "class": cls, "dtype": str(dtype)[6:],
                    "B": b, "H": h, "K": K3_PATCH, "d": d,
                    "blocks_per_forward": blocks, "max_abs_err": abs_err,
                    "max_rel_err": rel_err, **extra, "ms": ms,
-                   "registers_per_thread": regs,
+                   "registers_per_thread": res("registers"),
+                   "local_bytes": res("local_bytes"),
                    "plain_ms": plain_ms, "library_ms": library_ms,
                    "bound_ms": max(ops_ms, bytes_ms),
                    "bound_by": "operations" if ops_ms >= bytes_ms
@@ -1805,11 +1820,12 @@ def phase_train_reference_flash():
 
 
 def k3_entry(name, source, replaces, launches, totals, merge_launches,
-             diag_launches, parallel_launches, serving_launches=None):
+             diag_launches, parallel_launches, f32_launches, f32_phase):
     """The kernels line's entry of a K3 kernel: its sums over one forward
-    pass's launches in bfloat16, the train step's type; with
-    ``serving_launches`` also, under "float32", the same for float32, the
-    serving path's type, with that path's launches; ``merge_launches``
+    pass's launches in bfloat16, the recipe's train step's type; under
+    "float32" the same for float32 with the launches ``f32_launches`` of
+    the phase ``f32_phase`` that drives that type (serving_flash for the
+    forward, training_flash_f32 for the backward); ``merge_launches``
     those of the merge phases, ``diag_launches`` those of the diagnostics,
     flops and viewer phases, ``parallel_launches`` those of the dp_training,
     gauss_shard and train2d phases."""
@@ -1824,12 +1840,11 @@ def k3_entry(name, source, replaces, launches, totals, merge_launches,
              "parallel_launches": parallel_launches[name],
              **sums(totals["bfloat16"]),
              "per": f"one forward pass: {K3_BLOCKS} launches, bfloat16"}
-    if serving_launches is not None:
-        entry["float32"] = {
-            "launches": serving_launches[name], **sums(totals["float32"]),
-            "fp32_pipe_ms": totals["float32"]["fp32_pipe_ms"],
-            "per": f"one forward pass: {K3_BLOCKS} launches, float32 "
-                   "(launches: serving_flash)"}
+    entry["float32"] = {
+        "launches": f32_launches[name], **sums(totals["float32"]),
+        "fp32_pipe_ms": totals["float32"]["fp32_pipe_ms"],
+        "per": f"one forward pass: {K3_BLOCKS} launches, float32 "
+               f"(launches: {f32_phase})"}
     return entry
 
 
@@ -1906,7 +1921,10 @@ def phase_train_repro():
                              f"want {expected}")
 
 
-def phase_training(flash=False):
+def phase_training(flash=False, f32=False):
+    """PTv3-base train steps at full width (the recipe's config and
+    optimizer), with enable_flash if ``flash``, in float32 if ``f32``
+    (train.bf16 off). Returns the timed steps' launches."""
     from splatformer_tpu_torch.configs.model_ptv3_base import get_config
     from splatformer_tpu_torch.configs.train_default import \
         get_config as train_config
@@ -1918,6 +1936,9 @@ def phase_training(flash=False):
 
     name = "training_flash" if flash else "training"
     tcfg = train_config()
+    if f32:
+        name += "_f32"
+        tcfg.bf16 = False
     cfg = get_config()   # zeroinit=True and drop_path 0.3, as in the recipe
     cfg.backbone.enable_flash = flash
     model = build_feature_predictor(
@@ -1939,17 +1960,35 @@ def phase_training(flash=False):
     torch.cuda.synchronize()
 
     results = []
-    reset_launches()  # the training path's own count starts here
-    for i in range(TRAIN_STEPS):
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        m = step(batches[i + 1], gen)
-        torch.cuda.synchronize()
-        ms = (time.perf_counter() - t0) * 1e3
-        r = {"phase": name, "step": i, "ms": ms,
-             "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
-        r.update({k: float(v) for k, v in m.items()})
-        results.append(r)
+    # the type of every K3 call the steps make: the model calls the
+    # wrappers by their module names, so a spy there sees each call
+    from splatformer_tpu_torch.kernels import attention as k3_module
+    wrappers = {n: getattr(k3_module, n)
+                for n in ("attention_fwd", "attention_bwd")}
+    k3_dtypes = set()
+
+    def spy(fn):
+        def call(q, *args):
+            k3_dtypes.add(str(q.dtype)[6:])
+            return fn(q, *args)
+        return call
+    for n, fn in wrappers.items():
+        setattr(k3_module, n, spy(fn))
+    try:
+        reset_launches()  # the training path's own count starts here
+        for i in range(TRAIN_STEPS):
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            m = step(batches[i + 1], gen)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            r = {"phase": name, "step": i, "ms": ms,
+                 "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
+            r.update({k: float(v) for k, v in m.items()})
+            results.append(r)
+    finally:
+        for n, fn in wrappers.items():
+            setattr(k3_module, n, fn)
     launches = dict(LAUNCHES)
     moved = max(float((p.detach() - heads0[k]).abs().max())
                 for k, p in model.named_parameters() if k in heads0)
@@ -1959,7 +1998,9 @@ def phase_training(flash=False):
           "patch": 1024 if flash else 128,
           "compute_dtype": "bfloat16" if tcfg.bf16 else "float32",
           "params": n_params, "steps": TRAIN_STEPS, "launches": launches,
+          "k3_dtypes": sorted(k3_dtypes),
           "ms_mean": sum(r["ms"] for r in results) / TRAIN_STEPS,
+          "peak_mem_gb": max(r["peak_mem_gb"] for r in results),
           "head_max_update": moved})
     for r in results:
         if not (all(np.isfinite(r[k]) for k in
@@ -1974,6 +2015,9 @@ def phase_training(flash=False):
                 "attention_fwd": k3, "attention_bwd": k3}
     if launches != expected:
         raise AssertionError(f"{name} launched {launches}, want {expected}")
+    if f32 and k3_dtypes != {"float32"}:
+        raise AssertionError(f"{name} ran K3 in {sorted(k3_dtypes)}, want "
+                             "float32 only")
     return launches
 
 
@@ -3026,6 +3070,8 @@ def main():
     torch.cuda.empty_cache()
     launches = phase_training(flash=True)  # the train step's flash path
     torch.cuda.empty_cache()
+    f32_launches = phase_training(flash=True, f32=True)  # float32 K3-bwd's
+    torch.cuda.empty_cache()
     loop_launches = phase_loop()  # the training entry point
     torch.cuda.empty_cache()
     t_parallel = time.perf_counter()
@@ -3074,12 +3120,13 @@ def main():
                  f"{flash_src}:342 (called at "
                  "splatformer_tpu/models/ptv3.py:118)", launches, k3,
                  merge_launches, diag_launches, parallel_launches,
-                 serving_flash),
+                 serving_flash, "serving_flash"),
         k3_entry("attention_bwd",
                  "splatformer_tpu_torch/csrc/attention_bwd.cu",
                  f"{flash_src}:796 and :1146 (called at "
                  "splatformer_tpu/models/ptv3.py:118)", launches, k3_bwd,
-                 merge_launches, diag_launches, parallel_launches)]})
+                 merge_launches, diag_launches, parallel_launches,
+                 f32_launches, "training_flash_f32")]})
     smi = subprocess.run(
         ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],

@@ -7,11 +7,11 @@ flash_attention``): ``_flash_attention_kernel_single_batch`` forward, and
 ``_flash_attention_dkv_kernel`` / ``_flash_attention_dq_kernel`` backward.
 The kernel sources are csrc/attention_fwd.cu and csrc/attention_bwd.cu,
 whose headers state what bounds each kernel on Hopper and what its design
-does about it. Both forwards run on the tensor cores (mma.sync,
+does about it. Every kernel runs on the tensor cores (mma.sync,
 cp.async-staged tiles): bfloat16 directly, float32 as split-TF32 products
 (each operand split into two TF32 halves, three products a product, which
-keeps float32 accuracy). The backward runs bfloat16 on the tensor cores
-and float32 as SIMT kernels.
+keeps float32 accuracy), the forward in one pass and the backward in a dQ
+pass and a dK/dV pass.
 
 Layout (B, H, K, d) as the JAX kernel's: B patches, H heads, K tokens a
 patch, head width d. Semantics kept from the JAX kernel: logits s = (q k^T)

@@ -1,11 +1,13 @@
 """Where the time of one train step goes on the card.
 
-    python -m splatformer_tpu_torch.profile_train [--flash]  # needs a GPU
+    python -m splatformer_tpu_torch.profile_train [--flash] [--f32]
+    # needs a GPU
 
 Builds chip_smoke.py's training configuration (PTv3-base at full width,
 bf16 blocks, drop_path 0.3, zero-init heads, the recipe's Adam; one scene
 of 100k Gaussians padded to 100352 x 4 views at 256^2, L1 loss;
-``--flash``: enable_flash, patch 1024 through K3), then prints JSON lines:
+``--flash``: enable_flash, patch 1024 through K3; ``--f32``: float32
+blocks, train.bf16 off, so K3 runs in float32), then prints JSON lines:
   stages    median ms (CUDA events, 3 runs after a warm-up) of the refine
             forward (train mode, autograd on), the render forward, the
             render backward (K2 and the autograd of projection, SH and the
@@ -19,6 +21,7 @@ of 100k Gaussians padded to 100352 x 4 views at 256^2, L1 loss;
 """
 from __future__ import annotations
 
+import argparse
 import json
 import subprocess
 import time
@@ -26,14 +29,13 @@ import time
 import numpy as np
 import torch
 
-from splatformer_tpu_torch.profile_eval import (_device_time_us, _ms,
-                                                flash_flag, kernel_ms)
+from splatformer_tpu_torch.profile_eval import _device_time_us, _ms, kernel_ms
 
 ATTRS = ("means", "scales", "quats", "opacities", "features_dc",
          "features_rest")
 
 
-def main(flash: bool = False) -> None:
+def main(flash: bool = False, f32: bool = False) -> None:
     from splatformer_tpu_torch.configs.model_ptv3_base import get_config
     from splatformer_tpu_torch.configs.train_default import \
         get_config as train_config
@@ -47,10 +49,12 @@ def main(flash: bool = False) -> None:
                                                            make_train_step)
 
     tcfg = train_config()
+    tcfg.bf16 = not f32
     cfg = get_config()
     cfg.backbone.enable_flash = flash
-    model = build_feature_predictor(cfg, device="cuda", seed=0,
-                                    compute_dtype="bfloat16")
+    model = build_feature_predictor(
+        cfg, device="cuda", seed=0,
+        compute_dtype="bfloat16" if tcfg.bf16 else None)
     oc = tcfg.optimizer
     opt = build_optimizer(model, dict(oc.lr_dict), oc.type, oc.eps,
                           oc.schedule, tcfg.total_steps, oc.warmup_steps,
@@ -101,8 +105,9 @@ def main(flash: bool = False) -> None:
     stages["backbone_and_heads_fwd_bwd_ms"] = (
         stages["train_step_ms"] - stages["render_fwd_bwd_ms"]
         - stages["optimizer_ms"])
-    print(json.dumps({"phase": "stages", "flash": flash, **stages}),
-          flush=True)
+    print(json.dumps({"phase": "stages", "flash": flash,
+                      "compute_dtype": "bfloat16" if tcfg.bf16 else "float32",
+                      **stages}), flush=True)
 
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
@@ -141,7 +146,13 @@ def main(flash: bool = False) -> None:
 
 
 if __name__ == "__main__":
-    use_flash = flash_flag("Where the time of one train step goes.")
+    parser = argparse.ArgumentParser(
+        description="Where the time of one train step goes.")
+    parser.add_argument("--flash", action="store_true",
+                        help="PTv3-base with enable_flash (patch 1024, K3)")
+    parser.add_argument("--f32", action="store_true",
+                        help="float32 blocks (train.bf16 off)")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_train needs an NVIDIA GPU")
-    main(use_flash)
+    main(args.flash, args.f32)

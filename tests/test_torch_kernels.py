@@ -307,6 +307,41 @@ def test_attention_bf16_rescale_and_determinism_on_card(d):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("seq", [64, 192])
+@pytest.mark.parametrize("d", [16, 24, 32])
+def test_attention_f32_bwd_rescale_and_determinism_on_card(d, seq):
+    """float32 K3-bwd (split-TF32 dQ and dK/dV passes on the tensor cores,
+    as tests/test_torch_attention_bwd_tf32.py emulates them) on (2 patches,
+    4 heads, seq, d) where one row's logits lie 30 apart, the largest in
+    the patch's last 64-key tile: P is ~1 at that key and ~exp(-30) beside
+    it, and dS there is the difference of two near-equal terms, dP - D.
+    Each gradient within K3_BWD_TOL of its largest magnitude (_check_k3);
+    then the backward again on the same inputs, bit-identical, as neither
+    pass uses atomics."""
+    _card()
+    from splatformer_tpu_torch.kernels.attention import attention_bwd
+    gen = torch.Generator(device="cuda").manual_seed(300 + d + seq)
+    q, k, v, do = (torch.randn((2, 4, seq, d), generator=gen, device="cuda")
+                   for _ in range(4))
+    q = 2.0 * q
+    scale = d ** -0.5
+    row, key = 5, seq - 24
+    k[0, 1, key] = q[0, 1, row] * (30.0 / (scale * float(
+        q[0, 1, row].square().sum())))
+    logits = (q[0, 1, row] @ k[0, 1].T) * scale
+    assert float(logits.max() - logits.min()) >= 30.0
+    assert int(logits.argmax()) == key
+    (o, lse), grads = _check_k3(q, k, v, do, "float32")
+    before = LAUNCHES["attention_bwd"]
+    again = attention_bwd(q, k, v, o, lse, do, scale)
+    torch.cuda.synchronize()
+    assert LAUNCHES["attention_bwd"] == before + 1
+    for name, g, h in zip("qkv", grads, again):
+        assert g.dtype == torch.float32, name
+        assert torch.equal(g, h), name
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("kind", ["rescale", "wide"])
 @pytest.mark.parametrize("d", [16, 24, 32])
 def test_attention_f32_fwd_rescale_wide_and_determinism_on_card(d, kind):
