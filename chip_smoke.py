@@ -5,7 +5,9 @@
 
 Phases, each printing one JSON line:
   build     compile every CUDA kernel from csrc/ (one nvcc per source, all
-            started together, sm_90a), then read the K3 libraries with
+            started together, sm_90a) and, beside them, the JPEG decoder
+            (csrc/jpeg_decode.cpp, the host C++ compiler), then read the K3
+            libraries with
             cuobjdump: each kernel's registers a thread and its counts of
             HMMA (tensor-core), MUFU.EX2, LDSM and LDS.128 instructions,
             its stack and local (spill) bytes; fails if a bfloat16 K3
@@ -205,6 +207,21 @@ Phases, each printing one JSON line:
             own counts: per scene 2 ground-truth renders + the fit steps +
             2 eval_fit renders for K1, the fit steps for K2); the kernels
             line's ``fit_launches``;
+  jpeg      the JPEG decoders on the card machine's host: every fixture of
+            tests/data/jpeg/manifest.json through the compiled decoder
+            (data/jpeg.py:decode_jpeg) and its numpy plain version, each
+            image's SHA-256 equal to libjpeg-turbo's in the manifest, the
+            refused files raising NotImplementedError by name; ms a
+            megapixel of both over the capture's 12 views at 512^2;
+            image_io.decode_batch of the views against serial
+            decode_image; the host CPU's model (/proc/cpuinfo and its
+            CPUID brand string); then ``python -m
+            splatformer_tpu_torch.fit_3dgs`` on that JPEG capture in its
+            own process (JPEG_FIT_STEPS steps): finite losses, the last
+            logged below the first, its train-view PSNR, an npz of .jpg
+            views, K1 launched once a step and once for its final render,
+            K2 once a step, by its own count; the kernels line's
+            ``capture_launches``;
   bench     ``python -m splatformer_tpu_torch.bench`` in its own process
             (100k Gaussians, 4 views at 256^2: rasterizer forward +
             backward, then a PTv3-base bf16 train step): its final JSON
@@ -376,15 +393,15 @@ def k3_resources(paths):
 
 def phase_build():
     from splatformer_tpu_torch.kernels.attention import HEAD_DIMS
-    from splatformer_tpu_torch.kernels.build import (SOURCES, build_all,
+    from splatformer_tpu_torch.kernels.build import (ALL_SOURCES, build_all,
                                                      library_path)
-    compiled = sorted(n for n in SOURCES if not library_path(n).exists())
+    compiled = sorted(n for n in ALL_SOURCES if not library_path(n).exists())
     t0 = time.perf_counter()
     paths = build_all()
     seconds = time.perf_counter() - t0
     res = k3_resources(paths)
     emit({"phase": "build", "seconds": seconds,
-          "libraries": sorted(SOURCES), "compiled": compiled,
+          "libraries": sorted(ALL_SOURCES), "compiled": compiled,
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "k3_kernels": {f"{p} {t} d{d}": r
                          for (p, t, d), r in sorted(res.items())}})
@@ -2543,6 +2560,161 @@ def phase_factory():
     return launches
 
 
+JPEG_DIR = "tests/data/jpeg"
+JPEG_FIT_DIR = "build/chip_smoke_jpeg"
+JPEG_FIT_STEPS = 400
+JPEG_ROUNDS = 5      # timed rounds of the compiled decoder and the batch
+FIT_STEP_RE = re.compile(r"^fit step (\d+): .*'loss': ([^,}]+)")
+
+
+CPU_BRAND_SRC = r"""
+#include <cpuid.h>
+#include <cstdio>
+#include <cstring>
+int main() {
+  unsigned r[12] = {0};
+  for (unsigned i = 0; i < 3; ++i)
+    __get_cpuid(0x80000002u + i, &r[4 * i], &r[4 * i + 1], &r[4 * i + 2],
+                &r[4 * i + 3]);
+  char s[49];
+  std::memcpy(s, r, 48);
+  s[48] = 0;
+  std::puts(s);
+}
+"""
+
+
+def host_cpu():
+    """The host CPU: /proc/cpuinfo's model name, the CPUID brand string
+    (a virtualised /proc/cpuinfo may say "unknown"), and the core count."""
+    import tempfile
+
+    from splatformer_tpu_torch.kernels.build import cxx_path
+    with open("/proc/cpuinfo") as f:
+        names = [line.split(":", 1)[1].strip() for line in f
+                 if line.startswith("model name")]
+    with tempfile.TemporaryDirectory() as tmp:
+        src, exe = os.path.join(tmp, "brand.cpp"), os.path.join(tmp, "brand")
+        with open(src, "w") as f:
+            f.write(CPU_BRAND_SRC)
+        subprocess.run([str(cxx_path()), "-o", exe, src], check=True,
+                       timeout=120)
+        brand = subprocess.run([exe], check=True, capture_output=True,
+                               text=True, timeout=60).stdout.strip()
+    return {"proc_cpuinfo_model": names[0] if names else None,
+            "cpuid_brand": brand, "cores": os.cpu_count()}
+
+
+def phase_jpeg():
+    """The JPEG decoders against the manifest and their times on the host,
+    then fit_3dgs on the JPEG capture in its own process. Returns the fit's
+    launch counts."""
+    import hashlib
+
+    from splatformer_tpu_torch.data import image_io, jpeg
+
+    def sha(u8):
+        return hashlib.sha256(np.ascontiguousarray(u8).tobytes()).hexdigest()
+
+    with open(f"{JPEG_DIR}/manifest.json") as f:
+        manifest = json.load(f)
+    plain_s, mismatched, refused = {}, [], {}
+    for rel, entry in sorted(manifest.items()):
+        with open(f"{JPEG_DIR}/{rel}", "rb") as f:
+            data = f.read()
+        if "raises" in entry:
+            for fn in (jpeg.decode_jpeg, jpeg.decode_jpeg_plain):
+                try:
+                    fn(data)
+                except NotImplementedError as e:
+                    if entry["match"] not in str(e):
+                        mismatched.append((rel, fn.__name__, str(e)))
+                    refused[rel] = str(e)
+                else:
+                    mismatched.append((rel, fn.__name__, "decoded"))
+            continue
+        t0 = time.perf_counter()
+        plain = jpeg.decode_jpeg_plain(data)
+        plain_s[rel] = time.perf_counter() - t0
+        for name, u8 in (("plain", plain), ("compiled",
+                                            jpeg.decode_jpeg(data))):
+            if list(u8.shape) != entry["shape"] or sha(u8) != entry["sha256"]:
+                mismatched.append((rel, name, sha(u8)))
+    views = sorted(r for r in manifest if r.startswith("capture/images/"))
+    paths = [f"{JPEG_DIR}/{r}" for r in views]
+    blobs = []
+    for p in paths:
+        with open(p, "rb") as f:
+            blobs.append(f.read())
+    mpix = sum(int(np.prod(manifest[r]["shape"][:2])) for r in views) / 1e6
+
+    def median_s(fn):
+        times = []
+        for _ in range(JPEG_ROUNDS):
+            t0 = time.perf_counter()
+            fn()
+            times.append(time.perf_counter() - t0)
+        return float(np.median(times))
+    compiled_s = median_s(lambda: [jpeg.decode_jpeg(b) for b in blobs])
+    serial_s = median_s(lambda: [image_io.decode_image(p) for p in paths])
+    batch_s = median_s(lambda: image_io.decode_batch(paths))
+    batch = image_io.decode_batch(paths)
+    serial = np.stack([image_io.decode_image(p) for p in paths])
+    result = {
+        "phase": "jpeg", "host_cpu": host_cpu(),
+        "fixtures": len(manifest), "refused": refused,
+        "mismatched": mismatched, "capture_views": len(views),
+        "capture_mpix": mpix,
+        "plain_ms_per_mpix": 1e3 * sum(plain_s[r] for r in views) / mpix,
+        "compiled_ms_per_mpix": 1e3 * compiled_s / mpix,
+        "serial_decode_image_ms": 1e3 * serial_s,
+        "decode_batch_ms": 1e3 * batch_s,
+        "decode_batch_speedup": serial_s / batch_s,
+        "decode_batch_equal": bool(np.array_equal(batch, serial))}
+
+    capture = f"{JPEG_DIR}/capture"
+    out = f"{JPEG_FIT_DIR}/scene.npz"
+    stdout, seconds = run_module("splatformer_tpu_torch.fit_3dgs", [
+        "--colmap", capture, "--out", out, "--steps", str(JPEG_FIT_STEPS),
+        "--log_every", "50", "--capacity", "65536",
+        "--max_intersects", str(2 ** 21)])
+    losses, launches, psnr = [], None, None
+    for line in stdout.splitlines():
+        m = FIT_STEP_RE.match(line)
+        if m:
+            losses.append(float(m.group(2)))
+        elif line.startswith("kernel launches: "):
+            launches = json.loads(line[len("kernel launches: "):])
+        elif line.startswith("fit:"):
+            psnr = float(re.search(r"train-view: \{'psnr': ([^,}]+)",
+                                   line).group(1))
+    z = np.load(out)
+    train_paths = [str(p) for p in z["train_imgs_path"]]
+    want = {"composite_fwd": JPEG_FIT_STEPS + 1,
+            "composite_bwd": JPEG_FIT_STEPS,
+            "attention_fwd": 0, "attention_bwd": 0}
+    result.update({"fit_seconds": seconds, "fit_losses": losses,
+                   "fit_train_view_psnr": psnr, "fit_launches": launches,
+                   "fit_n_gauss": int(len(z["gs/means"])),
+                   "fit_train_views": len(train_paths)})
+    emit(result)
+    if mismatched or not refused:
+        raise AssertionError(f"JPEG decoders against the manifest: "
+                             f"{mismatched}")
+    if not result["decode_batch_equal"]:
+        raise AssertionError("decode_batch differs from serial decode_image")
+    if not (len(losses) == JPEG_FIT_STEPS // 50 and np.all(np.isfinite(losses))
+            and losses[-1] < losses[0] and psnr is not None
+            and np.isfinite(psnr)):
+        raise AssertionError(f"fit_3dgs on the JPEG capture: {losses} {psnr}")
+    if not (len(train_paths) == 10
+            and all(p.endswith(".jpg") for p in train_paths)):
+        raise AssertionError(f"fit_3dgs npz views: {train_paths}")
+    if launches != want:
+        raise AssertionError(f"fit_3dgs launched {launches}, want {want}")
+    return launches
+
+
 def phase_bench():
     """The port bench in its own process, as a user runs it."""
     t0 = time.perf_counter()
@@ -3081,6 +3253,7 @@ def main():
     phase_fit_reference()
     phase_fit_kernels()
     fit_launches = phase_factory()  # the data factory and its loaders
+    capture_launches = phase_jpeg()  # fit_3dgs on a JPEG capture
     torch.cuda.empty_cache()  # the bench's own process needs ~40 GB
     phase_bench()
     emit({"phase": "total", "seconds": time.perf_counter() - t_start,
@@ -3095,6 +3268,7 @@ def main():
         "launches": launches["composite_fwd"],
         "loop_launches": loop_launches["composite_fwd"],
         "fit_launches": fit_launches["composite_fwd"],
+        "capture_launches": capture_launches["composite_fwd"],
         "merge_launches": merge_launches["composite_fwd"],
         "diag_launches": diag_launches["composite_fwd"],
         "parallel_launches": parallel_launches["composite_fwd"],
@@ -3108,6 +3282,7 @@ def main():
         "launches": launches["composite_bwd"],
         "loop_launches": loop_launches["composite_bwd"],
         "fit_launches": fit_launches["composite_bwd"],
+        "capture_launches": capture_launches["composite_bwd"],
         "merge_launches": merge_launches["composite_bwd"],
         "diag_launches": diag_launches["composite_bwd"],
         "parallel_launches": parallel_launches["composite_bwd"],

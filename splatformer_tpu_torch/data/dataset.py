@@ -61,9 +61,21 @@ def read_image(path: str, background: np.ndarray) -> np.ndarray:
 
 def read_images(paths: Sequence[str], background: np.ndarray
                 ) -> List[np.ndarray]:
-    """``read_image`` of each path (the JAX package's threaded batch decode
-    gives the same values)."""
-    return [read_image(p, background) for p in paths]
+    """The JAX package's route (splatformer_tpu/data/dataset.py:60-80): two
+    or more paths, none of them real data, decode in one threaded
+    ``decode_batch`` and composite alike; a real-data path, a single path,
+    or images that differ in shape or fail to decode take ``read_image``
+    of each path. Both give the same values."""
+    if len(paths) < 2 or "real" in paths[0].lower():
+        return [read_image(p, background) for p in paths]
+    try:
+        batch = image_io.decode_batch(paths)
+    except IOError:
+        return [read_image(p, background) for p in paths]
+    if batch.shape[-1] == 4:
+        batch = (batch[..., :3] * batch[..., 3:]
+                 + background * (1.0 - batch[..., 3:]))
+    return list(batch)
 
 
 def corrupt_gaussians(gs: Dict[str, np.ndarray], rng: np.random.Generator,

@@ -1,24 +1,43 @@
-"""PNG decoding in numpy and zlib: the port's counterpart of
+"""Image decoding for the port: the counterpart of
 splatformer_tpu/data/native_io.py, whose libpng/libjpeg decoder
 (native/io.cc) cannot be built on machines without png.h and jpeglib.h.
 
-``decode_image`` returns what native/io.cc returns for a PNG: float32
-(H, W, C) in [0, 1], each 8-bit sample divided by 255; 16-bit samples keep
-their high byte; grey becomes RGB, grey + alpha RGBA; a palette becomes
-RGB, or RGBA when the file has a tRNS chunk; low-bit grey expands to 8 bits
-(x 255 / (2^depth - 1)); a tRNS colour key becomes an alpha channel. All
-five row filters are undone. Interlaced PNGs and JPEGs are refused by name
-(ROADMAP.md queue 1 item 3).
+``decode_image(path)`` returns what native/io.cc returns: float32 (H, W, C)
+in [0, 1], each 8-bit sample ``x.astype(float32) / float32(255)``.
+
+* PNG, in numpy and zlib: 16-bit samples keep their high byte; grey
+  becomes RGB, grey + alpha RGBA; a palette becomes RGB, or RGBA when the
+  file has a tRNS chunk; low-bit grey expands to 8 bits (x 255 / (2^depth
+  - 1)); a tRNS colour key becomes an alpha channel. All five row filters
+  are undone. Interlaced PNGs are refused by name.
+* JPEG, through the compiled decoder of data/jpeg.py (exact to
+  libjpeg-turbo 2.1.5 with native/io.cc's settings; its numpy plain version
+  is the oracle): always RGB, grey replicated. The variants it refuses by
+  name, and how it reports corrupt data, are in data/jpeg.py.
+
+The format is read from the file's signature. native/io.cc goes by the
+name instead (a ``.png`` name is read as PNG, any other as JPEG first), so
+a JPEG named ``*.png`` fails there and decodes here.
+
+``image_info(path)`` gives (W, H, C) from the headers; ``decode_batch``
+decodes a list of same-shaped images concurrently on a thread pool sized as
+native/io.cc's, ``max(2, os.cpu_count())`` (the JPEG decoder releases the
+interpreter lock), and equals the serial decode.
 """
 from __future__ import annotations
 
+import os
 import struct
 import zlib
-from typing import NamedTuple
+from concurrent.futures import ThreadPoolExecutor
+from typing import NamedTuple, Sequence, Tuple
 
 import numpy as np
 
+from splatformer_tpu_torch.data import jpeg
+
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
+_JPEG_SIGNATURE = b"\xff\xd8"
 # samples a pixel by colour type: grey, RGB, palette, grey + alpha, RGBA
 _SAMPLES = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
 
@@ -33,15 +52,7 @@ class _Png(NamedTuple):
     idat: bytes
 
 
-def _read_png(path: str) -> _Png:
-    with open(path, "rb") as f:
-        data = f.read()
-    if not data.startswith(_SIGNATURE):
-        if data[:2] == b"\xff\xd8":
-            raise NotImplementedError(
-                f"{path}: JPEG decoding is not ported (no libjpeg on the "
-                "card's machine; ROADMAP.md queue 1 item 3)")
-        raise IOError(f"cannot decode {path}: not a PNG")
+def _read_png(path: str, data: bytes) -> _Png:
     pos, ihdr, palette, trns, idat = len(_SIGNATURE), None, b"", b"", []
     while pos + 8 <= len(data):
         length, kind = struct.unpack(">I4s", data[pos:pos + 8])
@@ -115,9 +126,51 @@ def _unpack_bits(samples: np.ndarray, depth: int, count: int) -> np.ndarray:
     return (bits * weights).sum(axis=2).astype(np.uint8)
 
 
+def _read(path: str) -> bytes:
+    with open(path, "rb") as f:
+        data = f.read()
+    if not data.startswith((_SIGNATURE, _JPEG_SIGNATURE)):
+        raise IOError(f"cannot decode {path}: neither PNG nor JPEG")
+    return data
+
+
+def _png_channels(png: _Png) -> int:
+    if png.color in (4, 6) or (png.trns and png.color in (0, 2, 3)):
+        return 4
+    return 3
+
+
+def image_info(path: str) -> Tuple[int, int, int]:
+    """(width, height, channels) of what ``decode_image`` returns."""
+    data = _read(path)
+    if data.startswith(_JPEG_SIGNATURE):
+        w, h = _jpeg_call(path, jpeg.jpeg_size, data)
+        return w, h, 3
+    png = _read_png(path, data)
+    return png.width, png.height, _png_channels(png)
+
+
+def _jpeg_call(path, fn, data):
+    try:
+        return fn(data)
+    except IOError as e:
+        raise IOError(f"cannot decode {path}: {e}") from e
+    except NotImplementedError as e:
+        raise NotImplementedError(f"{path}: {e}") from e
+
+
 def decode_image(path: str) -> np.ndarray:
     """-> float32 (H, W, C) in [0, 1], C 3 or 4."""
-    png = _read_png(path)
+    data = _read(path)
+    if data.startswith(_JPEG_SIGNATURE):
+        rgb = _jpeg_call(path, jpeg.decode_jpeg, data)
+        # the float32 quotient of astype(float32) / 255, in one pass
+        return np.divide(rgb, np.float32(255.0), dtype=np.float32)
+    return _decode_png(path, data)
+
+
+def _decode_png(path: str, data: bytes) -> np.ndarray:
+    png = _read_png(path, data)
     w, h, depth, color = png.width, png.height, png.depth, png.color
     nsamp = _SAMPLES[color]
     bits = nsamp * depth
@@ -154,3 +207,34 @@ def decode_image(path: str) -> np.ndarray:
             img = np.concatenate([np.repeat(img[..., :1], 3, axis=-1),
                                   img[..., 1:]], axis=-1)
     return img.astype(np.float32) / np.float32(255.0)
+
+
+def decode_batch(paths: Sequence[str]) -> np.ndarray:
+    """Same-shaped images decoded concurrently -> float32 (N, H, W, C).
+    Raises IOError if one fails or differs in shape from the first, as
+    native_io.decode_batch does."""
+    paths = list(paths)
+    if not paths:
+        raise IOError("decode_batch: no paths")
+    w, h, c = image_info(paths[0])
+    out = np.empty((len(paths), h, w, c), np.float32)
+
+    def one(i: int, path: str) -> None:
+        img = decode_image(path)
+        if img.shape != out.shape[1:]:
+            raise IOError(f"{path}: shape {img.shape}, want {out.shape[1:]}")
+        out[i] = img
+
+    workers = max(2, os.cpu_count() or 1)
+    with ThreadPoolExecutor(max_workers=workers) as pool:
+        futures = [pool.submit(one, i, p) for i, p in enumerate(paths)]
+    errors = []
+    for p, f in zip(paths, futures):
+        try:
+            f.result()
+        except (IOError, NotImplementedError) as e:
+            errors.append(f"{p}: {e}")
+    if errors:
+        raise IOError(f"{len(errors)} images failed to decode: "
+                      + "; ".join(errors))
+    return out

@@ -11,13 +11,16 @@ prepare_data).
     python -m splatformer_tpu_torch.fit_3dgs --colmap data/colmap/scene0 \\
         --out cache/scene0.npz --steps 4000
 
-Runs on the card unless ``--cpu`` is given; without ``--cpu`` and without a
-card it exits with status 1. ``--ply`` also writes the live Gaussians as
-an Inria-format PLY for the SIBR or a web 3DGS viewer (utils/viewer.py).
+Images are PNG or JPEG (data/image_io.py). Runs on the card unless
+``--cpu`` is given; without ``--cpu`` and without a card it exits with
+status 1. It prints its kernel launches as ``kernel launches: {...}``.
+``--ply`` also writes the live Gaussians as an Inria-format PLY for the
+SIBR or a web 3DGS viewer (utils/viewer.py).
 """
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import sys
 from typing import Optional, Sequence
@@ -53,6 +56,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     from splatformer_tpu_torch.data.dataset import read_image
     from splatformer_tpu_torch.data.nerfstudio import load_cameras_colmap
     from splatformer_tpu_torch.data.transforms import MinMaxScaler
+    from splatformer_tpu_torch.kernels import LAUNCHES
     from splatformer_tpu_torch.ops.types import Camera, RasterizeConfig
     from splatformer_tpu_torch.training import fit_gs
 
@@ -99,6 +103,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         log_every=args.log_every)
     final = fit_gs.eval_fit(scene, images, cameras, rcfg)
     print("fit:", metrics, "train-view:", final, flush=True)
+    # K1 once a fit step and once for eval_fit's render, K2 once a step
+    print(f"kernel launches: {json.dumps(LAUNCHES)}", flush=True)
 
     # the live Gaussians, in the dataset's npz schema
     mask = scene.mask.cpu().numpy()

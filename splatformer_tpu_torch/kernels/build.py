@@ -1,12 +1,13 @@
-"""Build the CUDA sources under csrc/ into shared libraries with a plain C
+"""Build the sources under csrc/ into shared libraries with a plain C
 interface, loaded with ctypes.
 
-Each source is compiled by its own ``nvcc`` process for ``sm_90a`` at first
-use, into ``build/kernels/`` at the root of the checkout (listed in
-.gitignore). The library's file name carries a hash of the source, the
-headers it includes and the flags, so an edited source or header is rebuilt
-and a stale library is never loaded.
-``build_all`` starts one nvcc per source, all at once.
+Each CUDA source is compiled by its own ``nvcc`` process for ``sm_90a``,
+each host source (the JPEG decoder) by the host C++ compiler (``g++`` or
+``c++``), at first use, into ``build/kernels/`` at the root of the checkout
+(listed in .gitignore). The library's file name carries a hash of the
+source, the headers it includes and the flags, so an edited source or
+header is rebuilt and a stale library is never loaded.
+``build_all`` starts one compiler per source, all at once.
 """
 from __future__ import annotations
 
@@ -42,6 +43,11 @@ NVCC_FLAGS = {"composite_fwd": _ARCH + ("-fmad=false",) + _SHARED,
               "attention_fwd": _ARCH + _SHARED,
               "attention_bwd": _ARCH + _SHARED}
 
+# host library name -> C++ source under csrc/ (standard library only)
+HOST_SOURCES = {"jpeg_decode": "jpeg_decode.cpp"}
+HOST_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
+ALL_SOURCES = {**SOURCES, **HOST_SOURCES}
+
 _loaded: Dict[str, ctypes.CDLL] = {}
 
 
@@ -56,26 +62,41 @@ def nvcc_path() -> Path:
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
+def cxx_path() -> Path:
+    """The host C++ compiler: g++, else c++, from PATH."""
+    for name in ("g++", "c++"):
+        found = shutil.which(name)
+        if found:
+            return Path(found)
+    raise RuntimeError("no host C++ compiler (g++ or c++) on PATH: the JPEG "
+                       "decoder needs one")
+
+
+def _flags(name: str) -> tuple:
+    return HOST_FLAGS if name in HOST_SOURCES else NVCC_FLAGS[name]
+
+
 def library_path(name: str) -> Path:
     text = b"".join((CSRC_DIR / f).read_bytes()
-                    for f in (SOURCES[name], *INCLUDES.get(name, ())))
-    digest = hashlib.sha1(text + " ".join(NVCC_FLAGS[name]).encode())
+                    for f in (ALL_SOURCES[name], *INCLUDES.get(name, ())))
+    digest = hashlib.sha1(text + " ".join(_flags(name)).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
-def build_all(names: Iterable[str] = tuple(SOURCES)) -> Dict[str, Path]:
-    """Compile every named library that is not built yet, one nvcc process
-    per source, all started together. Returns name -> library path."""
+def build_all(names: Iterable[str] = tuple(ALL_SOURCES)) -> Dict[str, Path]:
+    """Compile every named library that is not built yet, one compiler
+    process per source, all started together. Returns name -> library
+    path; raises with the compiler's output if a build fails."""
     paths = {name: library_path(name) for name in names}
     todo = {name: p for name, p in paths.items() if not p.exists()}
     if todo:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        nvcc = str(nvcc_path())
         procs = {}
         for name, path in todo.items():
             tmp = path.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [nvcc, *NVCC_FLAGS[name], "-o", str(tmp),
-                   str(CSRC_DIR / SOURCES[name])]
+            compiler = cxx_path() if name in HOST_SOURCES else nvcc_path()
+            cmd = [str(compiler), *_flags(name), "-o", str(tmp),
+                   str(CSRC_DIR / ALL_SOURCES[name])]
             procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                             stderr=subprocess.STDOUT,
                                             text=True), tmp, path)
@@ -87,12 +108,12 @@ def build_all(names: Iterable[str] = tuple(SOURCES)) -> Dict[str, Path]:
             else:
                 os.replace(tmp, path)
         if failed:
-            raise RuntimeError("nvcc failed for " + "\n".join(failed))
+            raise RuntimeError("compiler failed for " + "\n".join(failed))
     return paths
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The ctypes handle of one kernel library, built at first use."""
+    """The ctypes handle of one library, built at first use."""
     lib = _loaded.get(name)
     if lib is None:
         lib = ctypes.CDLL(str(build_all([name])[name]))

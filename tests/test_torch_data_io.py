@@ -306,7 +306,9 @@ def test_png_decoder_matches_jax_read_image(tmp_path):
 
 def test_real_data_mask_rule_and_refusals(tmp_path):
     """A path with "real" in it and a masks/ sibling keeps the mask as a
-    4th channel; JPEG is refused by name."""
+    4th channel; a JPEG decodes as the JAX package's does, and a CMYK JPEG
+    (which would end a process that hands it to native_io) is refused by
+    name."""
     rng = np.random.default_rng(5)
     bg = np.array([1.0, 0.0, 0.5], np.float32)
     for sub in ("realOOD/images", "realOOD/masks"):
@@ -322,5 +324,10 @@ def test_real_data_mask_rule_and_refusals(tmp_path):
     jpg_path = str(tmp_path / "x.jpg")
     Image.fromarray(rng.integers(0, 256, (8, 8, 3), dtype=np.uint8)).save(
         jpg_path)
-    with pytest.raises(NotImplementedError, match="JPEG"):
-        image_io.decode_image(jpg_path)
+    assert np.array_equal(image_io.decode_image(jpg_path),
+                          native_io.decode_image(jpg_path))
+    cmyk_path = str(tmp_path / "cmyk.jpg")
+    Image.fromarray(rng.integers(0, 256, (8, 8, 4), dtype=np.uint8),
+                    "CMYK").save(cmyk_path)
+    with pytest.raises(NotImplementedError, match="CMYK"):
+        image_io.decode_image(cmyk_path)
