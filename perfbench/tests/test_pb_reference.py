@@ -1,0 +1,62 @@
+"""The comparison that decides ``correct``, driven through the harness at
+the tiny size on the CPU (the port's plain paths in place of its kernels):
+a sound run is correct; each fault the cell can have, planted in the timed
+path, and the control, the reference in the precision below the
+configuration's in the program's place, are not."""
+from __future__ import annotations
+
+import time
+
+import pytest
+import torch
+
+from perfbench import control
+from perfbench.lib import compare, harness
+from perfbench.lib.faults import FAULTS
+from perfbench.tests.tiny import tiny_cell
+
+SEED = 2 ** 31 + 12345  # more than 32 signed bits hold
+
+
+@pytest.fixture(autouse=True, scope="module")
+def few_threads():
+    n = torch.get_num_threads()
+    torch.set_num_threads(4)
+    yield
+    torch.set_num_threads(n)
+
+
+def run(workload, plant=None):
+    cell = tiny_cell(workload)
+    metrics = harness.metrics_for(harness.load_benchmark(), workload, False)
+    return harness.run(cell, metrics, SEED, 0.5, False, "cpu",
+                       time.perf_counter(), plant=plant)
+
+
+@pytest.mark.parametrize("workload", ["serve_flash", "serve_tome",
+                                      "train_flash"])
+def test_a_sound_run_is_correct(workload):
+    out = run(workload)
+    assert out["correct"], out["checks"]
+    assert out["attempted"] > 0 and out["failed"] == 0
+    assert set(out["checks"]) == set(tiny_cell(workload)["limits"])
+    assert list(out)[-1] == "checks"
+
+
+@pytest.mark.parametrize("workload,fault", [
+    (w, f) for w in ("serve_flash", "train_flash")
+    for f in FAULTS[tiny_cell(w)["traffic"]["kind"]]])
+def test_a_planted_fault_is_not_correct(workload, fault):
+    kind = tiny_cell(workload)["traffic"]["kind"]
+    out = run(workload, FAULTS[kind][fault])
+    assert not out["correct"], out["checks"]
+
+
+@pytest.mark.parametrize("workload", ["serve_flash", "train_flash"])
+def test_the_control_is_not_correct(workload):
+    """The reference in TF32 (serving) or float8 blocks (training) in the
+    program's place fails the cell's limits."""
+    cell = tiny_cell(workload)
+    r = control.readings(cell, SEED, 0.5, "cpu")
+    assert compare.passed(compare.verdict(r["program"], cell["limits"]))
+    assert not compare.passed(compare.verdict(r["control"], cell["limits"]))
