@@ -1,0 +1,161 @@
+"""lib/program_trace.py: the trace's reduction with the program's spans
+beside the harness's, on a synthetic trace, and the program's records of
+a tiny traced run on the CPU grouped by request or step."""
+from __future__ import annotations
+
+import time
+
+import pytest
+import torch
+
+from perfbench.lib import harness, program_trace, trace
+from perfbench.tests.tiny import tiny_cell
+from splatformer_tpu_torch import tracing
+
+
+class Event:
+    """The parts of a kineto event that the reductions read."""
+
+    def __init__(self, name, start, dur, corr, device="CUDA"):
+        self._v = (name, start, dur, corr, device)
+
+    def name(self):
+        return self._v[0]
+
+    def start_ns(self):
+        return self._v[1]
+
+    def duration_ns(self):
+        return self._v[2]
+
+    def correlation_id(self):
+        return self._v[3]
+
+    def device_type(self):
+        return f"DeviceType.{self._v[4]}"
+
+
+class Prof:
+    def __init__(self, events):
+        results = type("R", (), {"events": lambda self: events})()
+        self.profiler = type("P", (), {"kineto_results": results})()
+
+
+# in a window of 0-100 ns: kernels at 10-20, 40-50, 70-80 and 96-98, a
+# copy at 85-90; their launches at 5, 35, 62, 96 and 84
+EVENTS = [Event("k_a", 10, 10, 1), Event("k_b", 40, 10, 2),
+          Event("k_c", 70, 10, 3), Event("Memcpy HtoD", 85, 5, 4),
+          Event("k_d", 96, 2, 5),
+          Event("cudaLaunchKernel", 5, 1, 1, "CPU"),
+          Event("cudaLaunchKernel", 35, 1, 2, "CPU"),
+          Event("cudaLaunchKernel", 62, 1, 3, "CPU"),
+          Event("cudaMemcpyAsync", 84, 1, 4, "CPU"),
+          Event("cuLaunchKernel", 96, 1, 5, "CPU")]
+HARNESS = [("request", 0, 100)]
+SNAP = {"spans": [
+    {"name": "eval_step", "parent": None, "id": 0, "thread": 7,
+     "start_ns": 1, "end_ns": 95, "ms": 9e-5},
+    {"name": "refine", "parent": 0, "id": 0, "thread": 7,
+     "start_ns": 2, "end_ns": 38, "ms": 3e-5},
+    {"name": "refine.enc0", "parent": 1, "id": 0, "thread": 7,
+     "start_ns": 30, "end_ns": 37, "ms": 1e-5},
+    {"name": "render", "parent": 0, "id": 0, "thread": 7,
+     "start_ns": 39, "end_ns": 90, "ms": 5e-5},
+    {"name": "render.bin", "parent": 3, "id": 0, "thread": 7,
+     "start_ns": 55, "end_ns": 65, "ms": 1e-5}],
+    "counters": [], "launches": {}}
+
+
+def test_reduce_keeps_the_harness_numbers_and_adds_the_programs():
+    prof = Prof(EVENTS)
+    plain = trace.reduce(prof, (0, 100), HARNESS)
+    both = program_trace.reduce(prof, (0, 100), HARNESS, SNAP)
+    for key in ("busy_s", "window_s", "kernels", "launches"):
+        assert both[key] == plain[key]
+    assert plain["launches"] == 4
+    assert plain["idle"] == pytest.approx({"request": 63e-9})
+    # each gap (0-10, 20-40, 50-70, 80-85, 90-96, 98-100) by the innermost
+    # span open at its middle
+    assert both["idle"] == pytest.approx({
+        "refine": 10e-9, "refine.enc0": 20e-9, "render.bin": 20e-9,
+        "render": 5e-9, "eval_step": 6e-9, "request": 2e-9})
+    assert both["idle_within"] == pytest.approx({
+        "eval_step": 61e-9, "refine": 30e-9, "refine.enc0": 20e-9,
+        "render": 25e-9, "render.bin": 20e-9})
+    assert both["launches_by_span"] == {"refine": 1, "refine.enc0": 1,
+                                        "render.bin": 1, "outside_spans": 1}
+    assert both["launches_within"] == {"eval_step": 3, "refine": 2,
+                                       "refine.enc0": 1, "render": 1,
+                                       "render.bin": 1}
+
+
+def test_a_launch_without_a_runtime_record_is_unattributed():
+    events = [e for e in EVENTS if e.correlation_id() != 2
+              or e.device_type().endswith("CUDA")]
+    inner, _ = program_trace.launches_by_span(program_trace.launches(events),
+                                              SNAP["spans"])
+    assert inner["unattributed"] == 1
+
+
+def test_gaps_are_not_read_off_another_clock():
+    assert program_trace.idle_gaps(EVENTS, (20, 100)) == []
+    assert program_trace.reduce(Prof(EVENTS), (20, 100), HARNESS,
+                                SNAP)["idle_within"] == {}
+
+
+def test_per_root_groups_by_request():
+    snap = {"spans": SNAP["spans"] + [
+        {"name": "eval_step", "parent": None, "id": 1, "thread": 7,
+         "start_ns": 100, "end_ns": 150, "ms": 0.5},
+        {"name": "render.bin", "parent": 5, "id": 1, "thread": 7,
+         "start_ns": 110, "end_ns": 120, "ms": 0.25},
+        {"name": "render.bin", "parent": 5, "id": 1, "thread": 7,
+         "start_ns": 120, "end_ns": 130, "ms": 0.125}],
+        "counters": [{"name": "refine.rows.enc0", "value": 8, "id": 0},
+                     {"name": "refine.rows.enc0", "value": 9, "id": 1}]}
+    ms, counts = program_trace.per_root(snap)
+    assert [sorted(m) for m in ms] == [
+        ["eval_step", "refine", "refine.enc0", "render", "render.bin"],
+        ["eval_step", "render.bin"]]
+    assert ms[1]["render.bin"] == 0.375
+    assert counts == [{"refine.rows.enc0": 8}, {"refine.rows.enc0": 9}]
+
+
+@pytest.mark.parametrize("workload,want", [
+    ("serve_tome", ("render.project", "render.bin", "render", "refine",
+                    "attention.merge", "attention.unmerge", "mlp.merge",
+                    "mlp.unmerge")),
+    ("train_flash", ("backward", "loss.lpips", "optimizer", "refine",
+                     "render"))])
+def test_a_tiny_traced_run_records_what_the_readers_read(workload, want):
+    """The program's tracer on through a traced harness run on the CPU:
+    every request or step holds each span the span metrics read and the
+    counters of every stage."""
+    cell = tiny_cell(workload)
+    n = torch.get_num_threads()
+    torch.set_num_threads(4)
+    tracing.enable("cpu")
+    tracing.clear()
+    try:
+        out = harness.run(cell, [], 2 ** 31 + 77, 0.5, True, "cpu",
+                          time.perf_counter())
+        snap = tracing.snapshot()
+    finally:
+        tracing.disable()
+        tracing.clear()
+        torch.set_num_threads(n)
+    assert out["correct"], out["checks"]
+    # the requests or steps; set-up's renders of the ground truth are
+    # roots of their own
+    ids = {s["id"] for s in snap["spans"] if s["parent"] is None
+           and s["name"] in ("eval_step", "train_step")}
+    ms, counts = program_trace.per_root({
+        "spans": [s for s in snap["spans"] if s["id"] in ids],
+        "counters": [c for c in snap["counters"] if c["id"] in ids]})
+    assert len(ms) >= out["attempted"]
+    stages = len(cell["config"]["model"]["backbone"]["enc_depths"]) * 2 - 1
+    for m, c in zip(ms, counts):
+        assert all(m.get(name, 0) > 0 for name in want), m
+        assert len(c) == 3 * stages
+        assert all(c[f"refine.points.{s}"] <= c[f"refine.rows.{s}"]
+                   for s in ("enc0", "dec0"))

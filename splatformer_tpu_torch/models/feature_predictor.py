@@ -32,6 +32,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from splatformer_tpu_torch import tracing
 from splatformer_tpu_torch.configs.model_ptv3_base import ModelConfig
 from splatformer_tpu_torch.device import resolve_device
 from splatformer_tpu_torch.models.point import make_point_batch
@@ -138,6 +139,12 @@ class FeaturePredictor(nn.Module):
         seeded 0. Evaluation draws nothing else. ``diagnostics``, when
         given, is filled with PTv3's (models/ptv3.py; with downsampling,
         those of the reduced set); SpUNet's are empty."""
+        with tracing.span("refine"):
+            return self._refine(scene, generator, order_perm, merge_scores,
+                                downsample_scores, diagnostics)
+
+    def _refine(self, scene, generator, order_perm, merge_scores,
+                downsample_scores, diagnostics):
         mask = scene.valid_mask()
         n = scene.num_points
         dev = mask.device
@@ -181,32 +188,34 @@ class FeaturePredictor(nn.Module):
                 else:
                     uniform = draw
             y = self.backbone(pb, generator, uniform, diagnostics)
-        if up is not None:
-            y = up(y)  # the reduced set's outputs back on every point
-        if self.input_feat_to_mlp:
-            y = torch.cat([y, feat_full], dim=1)
+        with tracing.span("refine.heads"):
+            if up is not None:
+                y = up(y)  # the reduced set's outputs back on every point
+            if self.input_feat_to_mlp:
+                y = torch.cat([y, feat_full], dim=1)
 
-        out = {}
-        for f in self.output_features:
-            o = self.get_submodule(f"head_{f}")(y)
-            if self.output_features_type == "dc":
-                if f == "scales" and self.max_scale_normalized > 0:
-                    o = -F.relu(o) + math.log(self.max_scale_normalized)
-            else:
-                act = _ACTIVATIONS[self.activation.get(f, "identity").lower()]
-                o = act(o)
-            if f == "features_rest":
-                o = o.reshape(n, -1, 3)
-            out[f] = o if self.output_features_type == "dc" \
-                else getattr(scene, f) + o
+            out = {}
+            for f in self.output_features:
+                o = self.get_submodule(f"head_{f}")(y)
+                if self.output_features_type == "dc":
+                    if f == "scales" and self.max_scale_normalized > 0:
+                        o = -F.relu(o) + math.log(self.max_scale_normalized)
+                else:
+                    act = self.activation.get(f, "identity").lower()
+                    o = _ACTIVATIONS[act](o)
+                if f == "features_rest":
+                    o = o.reshape(n, -1, 3)
+                out[f] = o if self.output_features_type == "dc" \
+                    else getattr(scene, f) + o
 
-        refined = {}
-        for key in ALL_FEATURES:
-            if key in out and not (self.sh_degree == 0
-                                   and key == "features_rest"):
-                m = mask.reshape((-1,) + (1,) * (out[key].ndim - 1))
-                refined[key] = torch.where(m, out[key], getattr(scene, key))
-        return scene.replace(**refined)
+            refined = {}
+            for key in ALL_FEATURES:
+                if key in out and not (self.sh_degree == 0
+                                       and key == "features_rest"):
+                    m = mask.reshape((-1,) + (1,) * (out[key].ndim - 1))
+                    refined[key] = torch.where(m, out[key],
+                                               getattr(scene, key))
+            return scene.replace(**refined)
 
 
 @torch.no_grad()

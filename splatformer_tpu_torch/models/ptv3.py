@@ -52,6 +52,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from splatformer_tpu_torch import tracing
 from splatformer_tpu_torch.kernels.attention import FlashAttention
 from splatformer_tpu_torch.models.layers import (DropPath, MaskedBatchNorm,
                                                  Mlp, linear)
@@ -120,8 +121,9 @@ class SerializedAttention(nn.Module):
         unmerge = None
         if self.merge_info is not None:
             info = self.merge_info
-            q, kk, v, size, unmerge = merging.process_merging(
-                info["tome"], q, kk, v, info, uniform)
+            with tracing.span("attention.merge"):
+                q, kk, v, size, unmerge = merging.process_merging(
+                    info["tome"], q, kk, v, info, uniform)
         if self.use_flash and unmerge is None:
             out = FlashAttention.apply(q, kk, v, self.scale)
         else:
@@ -137,7 +139,8 @@ class SerializedAttention(nn.Module):
             attn = torch.softmax(attn, dim=-1).to(v.dtype)
             out = torch.matmul(attn, v)
         if unmerge is not None:
-            out = unmerge(out)                          # back to (B, H, K, ch)
+            with tracing.span("attention.unmerge"):
+                out = unmerge(out)                      # back to (B, H, K, ch)
         out = out.permute(0, 2, 1, 3).reshape(n, c).index_select(
             0, inverse.long())
         if self.record is not None:
@@ -215,11 +218,14 @@ class Block(nn.Module):
                                       pb.n_valid, k)
         inverse = pb.inverse_perm[self.order_index]
         hseq = h.index_select(0, order.long()).reshape(n // k, 1, k, c)
-        merge, unmerge, _ = merging.build_merge(info["tome"], hseq, info,
-                                                uniform)
-        tok = merge(hseq)
+        with tracing.span("mlp.merge"):
+            merge, unmerge, _ = merging.build_merge(info["tome"], hseq, info,
+                                                    uniform)
+            tok = merge(hseq)
         m = self.mlp(tok.reshape(-1, c), dt).reshape(tok.shape[:-1] + (-1,))
-        return unmerge(m).reshape(n, -1).index_select(0, inverse.long())
+        with tracing.span("mlp.unmerge"):
+            m = unmerge(m)
+        return m.reshape(n, -1).index_select(0, inverse.long())
 
     def forward(self, pb: PointBatch, nbr: torch.Tensor,
                 generator: Optional[torch.Generator] = None,
@@ -336,6 +342,14 @@ def _round_up(x: int, mult: int) -> int:
     return ((x + mult - 1) // mult) * mult
 
 
+def _count_stage(stage: str, pb: PointBatch, pairs: torch.Tensor) -> None:
+    """The tracer's counters of one stage: the slots its blocks run over,
+    its live points and its kernel map's live pairs."""
+    tracing.count(f"refine.rows.{stage}", pb.num_points)
+    tracing.count(f"refine.points.{stage}", pb.n_valid)
+    tracing.count(f"refine.pairs.{stage}", pairs)
+
+
 class PointTransformerV3(nn.Module):
     """The U-Net backbone. The embedding is Linear -> BN -> GELU ("MLP") or
     a 3^3 submanifold conv -> BN -> GELU ("PT_embedding"; the reference's
@@ -413,6 +427,18 @@ class PointTransformerV3(nn.Module):
                     dec_ch[s], dec_num_head[s], dec_patch_size[s],
                     i % len(ORDERS), dps[i], **block_kw))
 
+    def _pool_capacity(self, s: int, n: int) -> int:
+        """Stage ``s``'s point capacity, pooled from ``n`` slots: the
+        capacity factor's share, whole patches of the stage's larger patch
+        size, at least one patch and no more than ``n`` rounded up."""
+        patch_mult = max(
+            self.enc_patch_size[s],
+            self.dec_patch_size[min(s, len(self.dec_patch_size) - 1)])
+        cap = _round_up(
+            max(patch_mult, int(n * self.pool_capacity_factors[s - 1])),
+            patch_mult)
+        return min(cap, _round_up(n, patch_mult))
+
     def forward(self, pb: PointBatch,
                 generator: Optional[torch.Generator] = None,
                 uniform: Optional[merging.Uniform] = None,
@@ -423,46 +449,48 @@ class PointTransformerV3(nn.Module):
         ``diagnostics``, when given, is filled with the stage counts and
         the decoder stages' outputs (the module docstring)."""
         num_stages = len(self.enc_depths)
-        # stage 0's conv structure, shared by a PT_embedding stem
-        nbr0 = build_neighbor_map(pb.grid_coord, pb.mask)
-        if self.embedding_type == "MLP":
-            h = self.embed_linear(pb.feat)
-        else:
-            h = sparse_conv_apply(pb.feat, nbr0, self.embed_conv_kernel,
-                                  self.embed_conv_bias)
-        h = F.gelu(self.embed_norm(h, pb.mask), approximate="tanh")
+        with tracing.span("refine.embed"):
+            # stage 0's conv structure, shared by a PT_embedding stem
+            nbr0 = build_neighbor_map(pb.grid_coord, pb.mask)
+            if self.embedding_type == "MLP":
+                h = self.embed_linear(pb.feat)
+            else:
+                h = sparse_conv_apply(pb.feat, nbr0, self.embed_conv_kernel,
+                                      self.embed_conv_bias)
+            h = F.gelu(self.embed_norm(h, pb.mask), approximate="tanh")
         pb = pb.replace(feat=h)
 
-        skips, clusters, stage_nbrs = [], [], []
+        skips, clusters, stage_nbrs, pairs = [], [], [], {}
         for s in range(num_stages):
-            if s > 0:
-                patch_mult = max(
-                    self.enc_patch_size[s],
-                    self.dec_patch_size[min(s, len(self.dec_patch_size) - 1)])
-                cap = _round_up(
-                    max(patch_mult, int(pb.num_points
-                                        * self.pool_capacity_factors[s - 1])),
-                    patch_mult)
-                cap = min(cap, _round_up(pb.num_points, patch_mult))
-                child, cluster = self.get_submodule(f"enc{s}_down")(pb, cap)
-                clusters.append(cluster)
-                skips.append(pb)
-                pb = child
-            nbr = nbr0 if s == 0 else build_neighbor_map(pb.grid_coord,
-                                                         pb.mask)
-            stage_nbrs.append(nbr)
-            for i in range(self.enc_depths[s]):
-                pb = self.get_submodule(f"enc{s}_block{i}")(
-                    pb, nbr, generator, uniform)
+            with tracing.span(f"refine.enc{s}"):
+                if s > 0:
+                    child, cluster = self.get_submodule(f"enc{s}_down")(
+                        pb, self._pool_capacity(s, pb.num_points))
+                    clusters.append(cluster)
+                    skips.append(pb)
+                    pb = child
+                nbr = nbr0 if s == 0 else build_neighbor_map(pb.grid_coord,
+                                                             pb.mask)
+                stage_nbrs.append(nbr)
+                if tracing.enabled():
+                    pairs[s] = (nbr >= 0).sum()
+                    _count_stage(f"enc{s}", pb, pairs[s])
+                for i in range(self.enc_depths[s]):
+                    pb = self.get_submodule(f"enc{s}_block{i}")(
+                        pb, nbr, generator, uniform)
             if diagnostics is not None:
                 diagnostics[f"enc{s}_n_valid"] = pb.n_valid
 
         intermediates = {}
         for s in reversed(range(num_stages - 1)):
-            pb = self.get_submodule(f"dec{s}_up")(pb, skips[s], clusters[s])
-            for i in range(self.dec_depths[s]):
-                pb = self.get_submodule(f"dec{s}_block{i}")(
-                    pb, stage_nbrs[s], generator, uniform)
+            with tracing.span(f"refine.dec{s}"):
+                pb = self.get_submodule(f"dec{s}_up")(pb, skips[s],
+                                                      clusters[s])
+                if tracing.enabled():
+                    _count_stage(f"dec{s}", pb, pairs[s])
+                for i in range(self.dec_depths[s]):
+                    pb = self.get_submodule(f"dec{s}_block{i}")(
+                        pb, stage_nbrs[s], generator, uniform)
             if diagnostics is not None:
                 intermediates[f"dec{s}"] = {"feat": pb.feat,
                                             "code": pb.codes[0],

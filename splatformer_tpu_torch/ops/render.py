@@ -15,6 +15,7 @@ from typing import Dict, NamedTuple, Tuple
 
 import torch
 
+from splatformer_tpu_torch import tracing
 from splatformer_tpu_torch.ops import sh as sh_ops
 from splatformer_tpu_torch.ops.binning import TileBins, bin_gaussians
 from splatformer_tpu_torch.ops.camera import (normalize_quats,
@@ -74,24 +75,26 @@ def prepare_entries(scene: GaussianScene, cameras: Camera,
     height, width, ts = cameras.height, cameras.width, config.tile_size
     tiles_img = ((width + ts - 1) // ts) * ((height + ts - 1) // ts)
 
-    act = activate_gaussians(scene)
-    mask = scene.valid_mask()
-    opacities = torch.where(mask, act["opacities"],
-                            torch.zeros_like(act["opacities"]))
+    with tracing.span("render.project"):
+        act = activate_gaussians(scene)
+        mask = scene.valid_mask()
+        opacities = torch.where(mask, act["opacities"],
+                                torch.zeros_like(act["opacities"]))
 
-    projs, packs = [], []
-    for i in range(v):
-        c2w = cameras.c2w[i]
-        proj = project_gaussians(
-            act["means"], act["scales"], act["quats"],
-            opengl_c2w_to_opencv_w2c(c2w),
-            cameras.fx[i], cameras.fy[i], cameras.cx[i], cameras.cy[i],
-            height, width, tile_size=ts, clip_thresh=config.clip_thresh,
-            mask=mask, opacities=opacities,
-            alpha_threshold=config.alpha_threshold)
-        colors = compute_colors(scene, c2w[:3, 3])
-        projs.append(proj)
-        packs.append(pack_entries_t(proj.xys, proj.conics, colors, opacities))
+        projs, packs = [], []
+        for i in range(v):
+            c2w = cameras.c2w[i]
+            proj = project_gaussians(
+                act["means"], act["scales"], act["quats"],
+                opengl_c2w_to_opencv_w2c(c2w),
+                cameras.fx[i], cameras.fy[i], cameras.cx[i], cameras.cy[i],
+                height, width, tile_size=ts, clip_thresh=config.clip_thresh,
+                mask=mask, opacities=opacities,
+                alpha_threshold=config.alpha_threshold)
+            colors = compute_colors(scene, c2w[:3, 3])
+            projs.append(proj)
+            packs.append(pack_entries_t(proj.xys, proj.conics, colors,
+                                        opacities))
 
     # flatten (view, gaussian) onto one axis with the packed stride n_pad,
     # so the flat index v * n_pad + g addresses both the entry table and
@@ -104,14 +107,17 @@ def prepare_entries(scene: GaussianScene, cameras: Camera,
             x, (0, 0) * (x.ndim - 1) + (0, n_pad - n)) for x in field]
         return torch.cat(xs, dim=0)
 
-    projf = ProjectedGaussians(*(flat(f) for f in zip(*projs)))
-    tile_offset = torch.repeat_interleave(
-        torch.arange(v, dtype=torch.int32, device=scene.means.device)
-        * tiles_img, n_pad)
-    bins = bin_gaussians(projf, height, width, ts, v * config.max_intersects,
-                         config.tiles_per_gauss, tile_offset=tile_offset,
-                         num_images=v, tiers=config.tiers)
-    packed_t = gather_entries(torch.cat(packs, dim=1), bins.gauss_idx)
+    with tracing.span("render.bin"):
+        projf = ProjectedGaussians(*(flat(f) for f in zip(*projs)))
+        tile_offset = torch.repeat_interleave(
+            torch.arange(v, dtype=torch.int32, device=scene.means.device)
+            * tiles_img, n_pad)
+        bins = bin_gaussians(projf, height, width, ts,
+                             v * config.max_intersects,
+                             config.tiles_per_gauss, tile_offset=tile_offset,
+                             num_images=v, tiers=config.tiers)
+    with tracing.span("render.gather"):
+        packed_t = gather_entries(torch.cat(packs, dim=1), bins.gauss_idx)
     return PackedEntries(packed_t=packed_t, tile_start=bins.tile_start,
                          bins=bins)
 
@@ -125,14 +131,17 @@ def render_images_stats(
     """Render V views -> (rgb (V, H, W, 3) clamped to [., 1], alpha
     (V, H, W, 1), {'num_dropped', 'num_entries'}). num_dropped > 0 means
     (gaussian, tile) pairs were lost to the tier caps or the budget."""
-    entries = prepare_entries(scene, cameras, config)
-    rgb, alpha = composite_packed(
-        entries.packed_t, entries.tile_start, cameras.height, cameras.width,
-        config.tile_size, background,
-        alpha_threshold=config.alpha_threshold, max_alpha=config.max_alpha,
-        transmittance_eps=config.transmittance_eps,
-        num_images=cameras.c2w.shape[0])
-    rgb = torch.minimum(rgb, torch.ones_like(rgb))  # ties as jnp.clip
+    with tracing.span("render"):
+        entries = prepare_entries(scene, cameras, config)
+        with tracing.span("render.composite"):
+            rgb, alpha = composite_packed(
+                entries.packed_t, entries.tile_start, cameras.height,
+                cameras.width, config.tile_size, background,
+                alpha_threshold=config.alpha_threshold,
+                max_alpha=config.max_alpha,
+                transmittance_eps=config.transmittance_eps,
+                num_images=cameras.c2w.shape[0])
+        rgb = torch.minimum(rgb, torch.ones_like(rgb))  # ties as jnp.clip
     stats = {"num_dropped": entries.bins.num_dropped,
              "num_entries": entries.bins.num_entries}
     return rgb, alpha[..., None], stats

@@ -11,6 +11,8 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
+from splatformer_tpu_torch import tracing
+
 ORDERS = ("z", "z-trans", "hilbert", "hilbert-trans")
 INVALID_CODE = 2 ** 31 - 1  # real codes use 3 * depth <= 30 bits
 
@@ -100,10 +102,12 @@ def serialize(grid_coord: torch.Tensor, mask: torch.Tensor,
     permutes the order axis (PTv3's shuffle_orders in training)."""
     if depth * 3 > 30:
         raise ValueError("int32 keys support depth <= 10")
-    codes = torch.stack([encode(grid_coord, o, depth) for o in orders])
-    codes = torch.where(mask[None, :], codes,
-                        torch.full_like(codes, INVALID_CODE))
-    if perm is not None:
-        codes = codes[perm]
-    order_perm = torch.sort(codes, dim=-1, stable=True).indices
-    return codes, order_perm.to(torch.int32), inverse_permutation(order_perm)
+    with tracing.span("refine.serialize"):
+        codes = torch.stack([encode(grid_coord, o, depth) for o in orders])
+        codes = torch.where(mask[None, :], codes,
+                            torch.full_like(codes, INVALID_CODE))
+        if perm is not None:
+            codes = codes[perm]
+        order_perm = torch.sort(codes, dim=-1, stable=True).indices
+        return (codes, order_perm.to(torch.int32),
+                inverse_permutation(order_perm))

@@ -16,6 +16,8 @@ from typing import Optional
 
 import torch
 
+from splatformer_tpu_torch import tracing
+
 _COORD_BITS = 10  # voxel coords < 1024
 _INVALID_KEY = 2 ** 31 - 1
 MISSING_ROWS = 1024
@@ -42,6 +44,12 @@ def build_neighbor_map(grid_coord: torch.Tensor, mask: torch.Tensor,
     """-> nbr (N, K) int32: the neighbour voxel's min-index occupant per
     offset, the point itself at the centre tap, -1 where the voxel is empty
     or the point is masked."""
+    with tracing.span("refine.neighbor_map"):
+        return _neighbor_map(grid_coord, mask, kernel_size)
+
+
+def _neighbor_map(grid_coord: torch.Tensor, mask: torch.Tensor,
+                  kernel_size: int) -> torch.Tensor:
     n = grid_coord.shape[0]
     dev = grid_coord.device
     offs = conv_offsets(kernel_size, dev)

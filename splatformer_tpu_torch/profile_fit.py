@@ -24,9 +24,19 @@ import time
 import numpy as np
 import torch
 
-from splatformer_tpu_torch.profile_eval import _device_time_us, kernel_ms
-
 TIMED, PROFILED, WARMUP = 50, 20, 20
+
+
+def _device_time_us(evt) -> float:
+    for name in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(evt, name):
+            return float(getattr(evt, name))
+    return 0.0
+
+
+def kernel_ms(kernels, part: str) -> float:
+    """Summed device ms of the profiled kernels whose name holds ``part``."""
+    return sum(_device_time_us(e) for e in kernels if part in e.key) / 1e3
 
 
 def main() -> None:

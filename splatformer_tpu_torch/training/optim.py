@@ -28,6 +28,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from splatformer_tpu_torch import tracing
+
 B1, B2 = 0.9, 0.999
 
 
@@ -171,14 +173,21 @@ class ChainOptimizer:
             grads = self.acc
             self.acc = [torch.zeros_like(p) for p in self.params]
         if self.clip is not None:
-            norm = torch.linalg.vector_norm(torch.stack(
-                torch._foreach_norm(grads)))
-            below = norm < self.clip
-            one = torch.ones_like(norm)
-            # t if ||g|| < max_norm else (t / ||g||) * max_norm
-            grads = torch._foreach_mul(
-                torch._foreach_div(grads, torch.where(below, one, norm)),
-                torch.where(below, one, torch.full_like(norm, self.clip)))
+            with tracing.span("optimizer.clip"):
+                norm = torch.linalg.vector_norm(torch.stack(
+                    torch._foreach_norm(grads)))
+                below = norm < self.clip
+                one = torch.ones_like(norm)
+                # t if ||g|| < max_norm else (t / ||g||) * max_norm
+                grads = torch._foreach_mul(
+                    torch._foreach_div(grads, torch.where(below, one, norm)),
+                    torch.where(below, one, torch.full_like(norm, self.clip)))
+        with tracing.span("optimizer.adam"):
+            self._update(grads)
+
+    def _update(self, grads: List[torch.Tensor]) -> None:
+        """Adam (or SGD) on the clipped gradients, each group's parameters
+        moved by its learning rate."""
         count = self.count + 1
         if self.adam:
             self.mu, self.nu, updates = adam_update(

@@ -18,6 +18,7 @@ from typing import (Callable, Dict, Iterable, List, Optional, Sequence,
 
 import torch
 
+from splatformer_tpu_torch import tracing
 from splatformer_tpu_torch.models.feature_predictor import FeaturePredictor
 from splatformer_tpu_torch.models.lpips import LPIPS
 from splatformer_tpu_torch.ops.render import render_images_stats
@@ -55,11 +56,13 @@ def make_eval_step(model: Optional[FeaturePredictor],
 
     @torch.inference_mode()
     def eval_step(batch: SceneBatch) -> EvalOutput:
-        refined = batch.scene if render_input else model(batch.scene)
-        rgb, alpha, rstats = render_images_stats(
-            refined, batch.cameras, batch.background, raster_config)
-        return (rgb, alpha, psnr(rgb, batch.images),
-                ssim(rgb, batch.images), rstats["num_dropped"])
+        with tracing.span("eval_step"):
+            refined = batch.scene if render_input else model(batch.scene)
+            rgb, alpha, rstats = render_images_stats(
+                refined, batch.cameras, batch.background, raster_config)
+            with tracing.span("score"):
+                scores = psnr(rgb, batch.images), ssim(rgb, batch.images)
+        return (rgb, alpha, *scores, rstats["num_dropped"])
 
     return eval_step
 
@@ -119,6 +122,11 @@ def make_train_step(model: FeaturePredictor, optimizer: ChainOptimizer,
              merge_scores: Optional[Iterable[torch.Tensor]] = None,
              downsample_scores: Optional[torch.Tensor] = None
              ) -> Dict[str, torch.Tensor]:
+        with tracing.span("train_step"):
+            return _step(batch, generator, order_perm, merge_scores,
+                         downsample_scores)
+
+    def _step(batch, generator, order_perm, merge_scores, downsample_scores):
         model.train()
         optimizer.zero_grad()
         refined = model(batch.scene, generator, order_perm, merge_scores,
@@ -141,22 +149,27 @@ def make_train_step(model: FeaturePredictor, optimizer: ChainOptimizer,
         else:
             rgb, _, rstats = render_images_stats(
                 refined, batch.cameras, batch.background, raster_config)
-            l1 = torch.mean(torch.abs(rgb - batch.images))
-            metrics["num_dropped"] = rstats["num_dropped"].to(torch.float32)
-            loss = image_l1_loss_weight * l1
-            metrics["image_l1"] = l1.detach()
-            metrics["train_psnr"] = torch.mean(psnr(rgb.detach(),
-                                                    batch.images))
+            with tracing.span("loss.l1"):
+                l1 = torch.mean(torch.abs(rgb - batch.images))
+                metrics["num_dropped"] = rstats["num_dropped"].to(
+                    torch.float32)
+                loss = image_l1_loss_weight * l1
+                metrics["image_l1"] = l1.detach()
+                metrics["train_psnr"] = torch.mean(psnr(rgb.detach(),
+                                                        batch.images))
             if use_lpips:
-                lp = torch.mean(lpips(rgb, batch.images))
-                loss = loss + lpips_loss_weight * lp
-                metrics["lpips"] = lp.detach()
+                with tracing.span("loss.lpips"):
+                    lp = torch.mean(lpips(rgb, batch.images))
+                    loss = loss + lpips_loss_weight * lp
+                    metrics["lpips"] = lp.detach()
         metrics["total_loss"] = loss.detach()
-        loss.backward()
+        with tracing.span("backward"):
+            loss.backward()
         if mesh is not None:
             reduce_gradients(model, mesh.data_group)
             metrics = scalars_mean(metrics, mesh.data_group)
-        optimizer.step()
+        with tracing.span("optimizer"):
+            optimizer.step()
         return metrics
 
     return step
