@@ -28,6 +28,18 @@ Phases, each printing one JSON line:
             included): each gradient row within 1e-4 of its own largest
             magnitude, exact zeros outside the replayed ranges; times,
             bound, unfused_fp32_ms and the cull's numbers over the replay;
+  projection  the fused projection P1 (kernels/projection.py) at the
+            serving cells' shapes (100,352 slots, 4 views at 256^2 and 16
+            at 512^2, SH degree 1): its forward against its plain version
+            on the card, every output bit for bit (a failure counts and
+            names the differing (view, slot) pairs by field), its backward
+            against the plain version's autograd with a seeded dense
+            cotangent (each gradient within 1e-5 of its largest magnitude)
+            and bit-identical across two runs; each kernel's device time
+            (a CUDA-only torch.profiler trace), the forward call's pace on
+            the host, the plain version's forward and backward, and the
+            byte bound of each (each input byte read once, each output
+            byte written once); one launch each;
   k3        the patch-attention forward K3-fwd against its plain version
             at each (B, H, d) class of PTv3-base's flash path (patch 1024),
             float32 (split-TF32 tensor-core kernel) and bfloat16
@@ -312,6 +324,38 @@ def emit(obj):
     print(json.dumps(obj), flush=True)
 
 
+def kernel_ms(fn, name, reps=10):
+    """Mean device ms of the kernels whose name holds ``name`` over
+    ``reps`` calls of ``fn``, by a CUDA-only torch.profiler trace after one
+    warm-up call: the kernel's own time, whatever the host's pace."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    hits = [e for e in prof.key_averages() if name in e.key]
+    if not hits or sum(e.count for e in hits) != reps:
+        raise AssertionError(f"the trace holds {hits} for {name}, want "
+                             f"{reps} launches")
+    us = sum(getattr(e, "device_time_total", None) or e.cuda_time_total
+             for e in hits)
+    return us / reps / 1e3
+
+
+def with_projection(launches, renders=None, backwards=None):
+    """``launches`` with the fused projection's (P1) counts: one forward a
+    K1 launch and one backward a K2 launch, as every render through
+    ops/render.py makes them, unless ``renders`` and ``backwards`` say
+    otherwise (the Gaussian-sharded render projects in plain PyTorch)."""
+    return {**launches,
+            "projection_fwd": (launches["composite_fwd"] if renders is None
+                               else renders),
+            "projection_bwd": (launches["composite_bwd"] if backwards is None
+                               else backwards)}
+
+
 def cuda_ms(fn, reps):
     """Mean ms per call over ``reps`` calls, by CUDA events, after one
     warm-up call."""
@@ -567,6 +611,105 @@ def live_pairs(packed_t, tile_start, tiles_x, tiles_img, walked,
         live += int(on.sum())
         unclamped += int((on & (raw < max_alpha)).sum())
     return live, unclamped
+
+
+# P1's gradients against the plain version's autograd, relative to each
+# gradient's largest magnitude: both round each forward operation alike,
+# the backward sums the views and the chain's terms in another order
+P1_BWD_TOL = 1e-5
+P1_CASES = ((VIEWS, HW), (16, 512))   # serve_4x256, serve_16x512
+P1_FIELDS = ("depths", "radii", "num_tiles_hit", "radii_xy", "tile_offset")
+
+
+def phase_projection():
+    from splatformer_tpu_torch.data.synthetic import orbit_cameras, random_scene
+    from splatformer_tpu_torch.kernels import LAUNCHES, reset_launches
+    from splatformer_tpu_torch.kernels.projection import (padded,
+                                                          project_views,
+                                                          project_views_plain)
+    from splatformer_tpu_torch.ops.types import RasterizeConfig
+
+    attrs = ("means", "scales", "quats", "opacities", "features_dc",
+             "features_rest")
+    scene = random_scene(np.random.default_rng(0), SCENE_PAD, sh_degree=1,
+                         n_valid=SCENE_N)
+    cfg = RasterizeConfig()
+    n_pad = padded(SCENE_PAD)
+    # what any projection must move: the scene once, its outputs once
+    in_bytes = sum(getattr(scene, k).numel() * 4 for k in attrs) + SCENE_PAD
+    rows = []
+    for views, hw in P1_CASES:
+        cams = orbit_cameras(views, hw, hw)
+        reset_launches()
+        k = project_views(scene, cams, cfg)
+        torch.cuda.synchronize()
+        fwd_launches = LAUNCHES["projection_fwd"]
+        p = project_views_plain(scene, cams, cfg)
+        differ = {"packed_t": (k.packed_t != p.packed_t).any(dim=0)}
+        for name in P1_FIELDS:
+            a = getattr(k.proj, name, None)
+            b = getattr(p.proj, name, None)
+            if a is None:
+                a, b = getattr(k, name), getattr(p, name)
+            differ[name] = (a != b).reshape(a.shape[0], -1).any(dim=1)
+        any_col = torch.stack(list(differ.values())).any(dim=0)
+        named = [divmod(int(c), n_pad) for c in torch.nonzero(any_col)[:20, 0]]
+        fwd_ms = kernel_ms(lambda: project_views(scene, cams, cfg),
+                           "projection_fwd_kernel")
+        host_ms = cuda_ms(lambda: project_views(scene, cams, cfg), 20)
+        plain_ms = cuda_ms(lambda: project_views_plain(scene, cams, cfg), 3)
+
+        gen = torch.Generator(device="cuda").manual_seed(views)
+        g_packed = torch.randn((16, views * n_pad), generator=gen,
+                               device="cuda")
+        g_packed[9:] = 0.0
+
+        def grads(project):
+            leaves = {a: getattr(scene, a).detach().clone()
+                      .requires_grad_(True) for a in attrs}
+            out = project(scene.replace(**leaves), cams, cfg)
+            (out.packed_t * g_packed).sum().backward()
+            return {a: x.grad for a, x in leaves.items()}
+        reset_launches()
+        g_k = grads(project_views)
+        bwd_launches = LAUNCHES["projection_bwd"]
+        g_k2 = grads(project_views)
+        g_p = grads(project_views_plain)
+        bwd_ms = kernel_ms(lambda: grads(project_views),
+                           "projection_bwd_kernel")
+        # the plain version's forward and backward, less its forward
+        plain_bwd_ms = cuda_ms(lambda: grads(project_views_plain), 3) \
+            - plain_ms
+        rel_err = {a: float((g_k[a] - g_p[a]).abs().max()
+                            / g_p[a].abs().max()) for a in attrs}
+        repeat = all(torch.equal(g_k[a], g_k2[a]) for a in attrs)
+
+        out_bytes = views * n_pad * (16 * 4 + 4 + 4 + 4 + 8 + 4)
+        cot_bytes = views * n_pad * 9 * 4
+        row = {"phase": "projection", "views": views, "hw": hw,
+               "slots": SCENE_PAD,
+               "differing_pairs": int(any_col.sum()),
+               "differing_by_field": {f: int(d.sum())
+                                      for f, d in differ.items()},
+               "differing_first": named,
+               "bwd_max_rel_err": rel_err, "bwd_bit_identical": repeat,
+               "fwd_ms": fwd_ms, "fwd_host_ms": host_ms,
+               "fwd_bound_ms": (in_bytes + out_bytes) / PEAK_BYTES * 1e3,
+               "plain_ms": plain_ms, "bwd_ms": bwd_ms,
+               "bwd_bound_ms": (2 * in_bytes - SCENE_PAD + cot_bytes)
+               / PEAK_BYTES * 1e3,
+               "plain_bwd_ms": plain_bwd_ms,
+               "live": int((k.proj.radii > 0).sum()),
+               "launches": {"fwd": fwd_launches, "bwd": bwd_launches}}
+        emit(row)
+        rows.append(row)
+        if not (row["differing_pairs"] == 0
+                and max(rel_err.values()) <= P1_BWD_TOL and repeat
+                and fwd_launches == 1 and bwd_launches == 1
+                and row["live"] > views * SCENE_N // 2):
+            raise AssertionError(f"P1 disagrees with its plain version: "
+                                 f"{row}")
+    return rows
 
 
 def phase_k2():
@@ -836,8 +979,9 @@ def phase_reference(flash=False):
             and float((ssim_g - ssim_c).abs().max()) <= 1e-4
             and int(drop_g) == int(drop_c)):
         raise AssertionError(f"card and CPU eval steps disagree: {result}")
-    expected = {"composite_fwd": 1, "composite_bwd": 0,
-                "attention_fwd": 5 if flash else 0, "attention_bwd": 0}
+    expected = with_projection({"composite_fwd": 1, "composite_bwd": 0,
+                                "attention_fwd": 5 if flash else 0,
+                                "attention_bwd": 0})
     if launches != expected:
         raise AssertionError(f"{result['phase']} launched {launches}, "
                              f"want {expected}")
@@ -893,9 +1037,10 @@ def phase_serving(flash=False):
         if not (r["finite"] and r["rgb_shape"] == [VIEWS, HW, HW, 3]
                 and all(np.isfinite(r["psnr"])) and all(np.isfinite(r["ssim"]))):
             raise AssertionError(f"bad eval output: {r}")
-    expected = {"composite_fwd": REQUESTS, "composite_bwd": 0,
-                "attention_fwd": K3_BLOCKS * REQUESTS if flash else 0,
-                "attention_bwd": 0}
+    expected = with_projection({
+        "composite_fwd": REQUESTS, "composite_bwd": 0,
+        "attention_fwd": K3_BLOCKS * REQUESTS if flash else 0,
+        "attention_bwd": 0})
     if launches != expected:
         raise AssertionError(f"{name} launched {launches}, want {expected}")
     return launches
@@ -1138,8 +1283,9 @@ def phase_merge_reference():
                 and bool(mg) == merges_expected
                 and (row["downsamples"] > 0) == (name in (
                     "ptv3_fps", "ptv3_voxel", "ptv3_drop"))
-                and launches == {"composite_fwd": 1, "composite_bwd": 0,
-                                 "attention_fwd": 0, "attention_bwd": 0}):
+                and launches == with_projection({
+                    "composite_fwd": 1, "composite_bwd": 0,
+                    "attention_fwd": 0, "attention_bwd": 0})):
             raise AssertionError(f"merge_reference {name}: {row}")
     shares = [r["identical_selection_share"] for r in rows
               if r["identical_selection_share"] is not None]
@@ -1223,9 +1369,9 @@ def phase_serving_merge(requests, flash=False):
                      or row["live_tokens_mean"] < tokens[0][0])
                 and (name not in ("ptv3_fps", "ptv3_voxel", "ptv3_drop")
                      or row.get("reduced_points", 0) > 0)
-                and launches == {"composite_fwd": MERGE_REQUESTS,
-                                 "composite_bwd": 0, "attention_fwd": k3,
-                                 "attention_bwd": 0}):
+                and launches == with_projection({
+                    "composite_fwd": MERGE_REQUESTS, "composite_bwd": 0,
+                    "attention_fwd": k3, "attention_bwd": 0})):
             raise AssertionError(f"{phase} {name}: {row}")
         for k in totals:
             totals[k] += launches[k]
@@ -1279,10 +1425,9 @@ def phase_training_merge(requests):
         if not (all(np.isfinite(row[k]) for k in
                     ("total_loss", "image_l1", "train_psnr"))
                 and row["num_dropped"] == 0
-                and row["launches"] == {"composite_fwd": 1,
-                                        "composite_bwd": 1,
-                                        "attention_fwd": 0,
-                                        "attention_bwd": 0}):
+                and row["launches"] == with_projection({
+                    "composite_fwd": 1, "composite_bwd": 1,
+                    "attention_fwd": 0, "attention_bwd": 0})):
             raise AssertionError(f"training_merge {name}: {row}")
         for k in totals:
             totals[k] += row["launches"][k]
@@ -1406,9 +1551,9 @@ def phase_diagnostics(flash=False):
         if not r["max_abs_err"] <= DIAG_REPLAY_TOL * r["max_abs"]:
             raise AssertionError(f"{name}: the replay of {block} disagrees "
                                  f"with the recorded attention: {r}")
-    expected = {"composite_fwd": 0, "composite_bwd": 0,
-                "attention_fwd": K3_BLOCKS if flash else 0,
-                "attention_bwd": 0}
+    expected = with_projection({"composite_fwd": 0, "composite_bwd": 0,
+                                "attention_fwd": K3_BLOCKS if flash else 0,
+                                "attention_bwd": 0})
     if launches != expected or len(recs) != K3_BLOCKS:
         raise AssertionError(f"{name} launched {launches}, want {expected} "
                              f"({len(recs)} blocks recorded)")
@@ -1484,8 +1629,9 @@ def phase_flops():
     bad = [r for r in rows if not r["rel_err"] <= FLOPS_RTOL]
     if bad or len(rows) != len(FLOPS_ALGOS) + 2:
         raise AssertionError(f"flops rows differ from gflops.csv: {bad}")
-    expected = {"composite_fwd": 0, "composite_bwd": 0,
-                "attention_fwd": 2 * K3_BLOCKS, "attention_bwd": 0}
+    expected = with_projection({"composite_fwd": 0, "composite_bwd": 0,
+                                "attention_fwd": 2 * K3_BLOCKS,
+                                "attention_bwd": 0})
     if launches != expected:
         raise AssertionError(f"flops (flash) launched {launches}, want "
                              f"{expected}")
@@ -1580,8 +1726,9 @@ def phase_viewer():
                 and row["viewer_points"] == [SCENE_N, SCENE_N]
                 and row["cameras"] == VIEWS and row["moved"] > 0):
             raise AssertionError(f"viewer export: {row}")
-    expected = {"composite_fwd": VIEWER_SCENES, "composite_bwd": 0,
-                "attention_fwd": 0, "attention_bwd": 0}
+    expected = with_projection({"composite_fwd": VIEWER_SCENES,
+                                "composite_bwd": 0, "attention_fwd": 0,
+                                "attention_bwd": 0})
     if launches != expected:
         raise AssertionError(f"viewer launched {launches}, want {expected}")
 
@@ -1829,8 +1976,8 @@ def phase_train_reference_flash():
     emit(result)
     if loss_err > 1e-5:
         raise AssertionError(f"card and CPU flash losses differ: {result}")
-    expected = {"composite_fwd": 1, "composite_bwd": 1, "attention_fwd": 5,
-                "attention_bwd": 5}
+    expected = with_projection({"composite_fwd": 1, "composite_bwd": 1,
+                                "attention_fwd": 5, "attention_bwd": 5})
     if launches != expected:
         raise AssertionError(f"train_reference_flash launched {launches}, "
                              f"want {expected}")
@@ -1931,8 +2078,8 @@ def phase_train_repro():
     if not (result["rel_loss_diff"] <= 1e-3 and grad_cos >= 0.998):
         raise AssertionError(f"two steps from one state differ beyond the "
                              f"bf16 perturbation: {result}")
-    expected = {"composite_fwd": 2, "composite_bwd": 2, "attention_fwd": 0,
-                "attention_bwd": 0}
+    expected = with_projection({"composite_fwd": 2, "composite_bwd": 2,
+                                "attention_fwd": 0, "attention_bwd": 0})
     if launches != expected:
         raise AssertionError(f"train_repro launched {launches}, "
                              f"want {expected}")
@@ -2028,8 +2175,9 @@ def phase_training(flash=False, f32=False):
     if not moved > 0:
         raise AssertionError("the heads did not move")
     k3 = K3_BLOCKS * TRAIN_STEPS if flash else 0
-    expected = {"composite_fwd": TRAIN_STEPS, "composite_bwd": TRAIN_STEPS,
-                "attention_fwd": k3, "attention_bwd": k3}
+    expected = with_projection({"composite_fwd": TRAIN_STEPS,
+                                "composite_bwd": TRAIN_STEPS,
+                                "attention_fwd": k3, "attention_bwd": k3})
     if launches != expected:
         raise AssertionError(f"{name} launched {launches}, want {expected}")
     if f32 and k3_dtypes != {"float32"}:
@@ -2286,9 +2434,9 @@ def phase_fit_reference():
         raise AssertionError(f"planted fit faults pass as sound: {caught}")
     # the card's loss render, then per fit its steps and one eval_fit render
     n_fits = len(FIT_SEEDS) + len(FIT_FAULTS)
-    want = {"composite_fwd": 1 + n_fits * (cfg.steps + 1),
-            "composite_bwd": 1 + n_fits * cfg.steps,
-            "attention_fwd": 0, "attention_bwd": 0}
+    want = with_projection({"composite_fwd": 1 + n_fits * (cfg.steps + 1),
+                            "composite_bwd": 1 + n_fits * cfg.steps,
+                            "attention_fwd": 0, "attention_bwd": 0})
     if launches != want:
         raise AssertionError(f"fit_reference launched {launches}, want {want}")
     return launches
@@ -2497,14 +2645,16 @@ def phase_factory():
     images = [s for s in range(FACTORY_STEPS)
               if s % cfg.train.log_image_interval == 0]
     n_test = len(os.listdir(f"{data}/test/nerfstudio"))
-    want_fit = {"composite_fwd": (2 + steps + 2) * len(scenes),
-                "composite_bwd": steps * len(scenes),
-                "attention_fwd": 0, "attention_bwd": 0}
+    want_fit = with_projection({
+        "composite_fwd": (2 + steps + 2) * len(scenes),
+        "composite_bwd": steps * len(scenes),
+        "attention_fwd": 0, "attention_bwd": 0})
     # a step's render, the refined and the input render of every test
     # scene at each eval, and the train images (the loaders render no GT)
-    want_loop = {"composite_fwd": FACTORY_STEPS + 2 * n_test * len(evals)
-                 + len(images), "composite_bwd": FACTORY_STEPS,
-                 "attention_fwd": 0, "attention_bwd": 0}
+    want_loop = with_projection({
+        "composite_fwd": FACTORY_STEPS + 2 * n_test * len(evals)
+        + len(images), "composite_bwd": FACTORY_STEPS,
+        "attention_fwd": 0, "attention_bwd": 0})
     result = {
         "phase": "factory", "seconds": seconds, "scenes": scenes,
         "peak_mem_gib": peak_gib, "launches": launches,
@@ -2690,9 +2840,9 @@ def phase_jpeg():
                                    line).group(1))
     z = np.load(out)
     train_paths = [str(p) for p in z["train_imgs_path"]]
-    want = {"composite_fwd": JPEG_FIT_STEPS + 1,
-            "composite_bwd": JPEG_FIT_STEPS,
-            "attention_fwd": 0, "attention_bwd": 0}
+    want = with_projection({"composite_fwd": JPEG_FIT_STEPS + 1,
+                            "composite_bwd": JPEG_FIT_STEPS,
+                            "attention_fwd": 0, "attention_bwd": 0})
     result.update({"fit_seconds": seconds, "fit_losses": losses,
                    "fit_train_view_psnr": psnr, "fit_launches": launches,
                    "fit_n_gauss": int(len(z["gs/means"])),
@@ -2885,8 +3035,8 @@ def phase_dp_training(flash=False):
     reduced = reduce_metric_sums({"psnr": 61.0, "ssim": 1.5}, 2.0)
     sync_processes("chip_smoke")
     k3 = K3_BLOCKS if flash else 0
-    expected = {"composite_fwd": 1, "composite_bwd": 1,
-                "attention_fwd": k3, "attention_bwd": k3}
+    expected = with_projection({"composite_fwd": 1, "composite_bwd": 1,
+                                "attention_fwd": k3, "attention_bwd": k3})
     result = {
         "phase": name, "model": "ptv3_base", "compute_dtype": "bfloat16",
         "patch": 1024 if flash else 128,
@@ -3034,8 +3184,11 @@ def phase_gauss_shard():
                 and sum(r["num_dropped"]) == 0 and dropped0 == 0):
             raise AssertionError(f"the sharded render at G = {n_shards} "
                                  f"disagrees: {r}")
-        want = {"composite_fwd": n_shards, "composite_bwd": n_shards,
-                "attention_fwd": 0, "attention_bwd": 0}
+        # the sharded render projects each view in plain PyTorch
+        want = with_projection({"composite_fwd": n_shards,
+                                "composite_bwd": n_shards,
+                                "attention_fwd": 0, "attention_bwd": 0},
+                               renders=0, backwards=0)
         if r["launches"] != want:
             raise AssertionError(f"G = {n_shards} launched {r['launches']}, "
                                  f"want {want}")
@@ -3140,8 +3293,11 @@ def phase_train2d():
                 and c["grad_cos"] >= TRAIN2D_GRAD_COS):
             raise AssertionError(f"train2d {c['pair']} disagree: {c}")
     for name, g in (("dp", 1), ("2d_1x1", 1), ("2d_1xlocal2", 2)):
-        want = {"composite_fwd": g, "composite_bwd": g, "attention_fwd": 0,
-                "attention_bwd": 0}
+        # the 2-D steps render Gaussian-sharded: no fused projection
+        p1 = 1 if name == "dp" else 0
+        want = with_projection({"composite_fwd": g, "composite_bwd": g,
+                                "attention_fwd": 0, "attention_bwd": 0},
+                               renders=p1, backwards=p1)
         if runs[name]["launches"] != want:
             raise AssertionError(f"train2d {name} launched "
                                  f"{runs[name]['launches']}, want {want}")
@@ -3203,6 +3359,7 @@ def main():
     resources = phase_build()
     k1 = phase_k1()
     k2 = phase_k2()
+    projection = phase_projection()
     k3 = phase_k3(resources)
     k3_bwd = phase_k3(resources, backward=True)
     phase_reference()
@@ -3290,6 +3447,26 @@ def main():
         "ms": k2["ms"], "plain_ms": k2["plain_ms"],
         "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
         "library_ms": None},
+        *({"name": f"projection_{d}", "route": "cuda",
+           "source": f"splatformer_tpu_torch/csrc/projection_{d}.cu",
+           "replaces": None,
+           "launches": launches[f"projection_{d}"],
+           "loop_launches": loop_launches[f"projection_{d}"],
+           "fit_launches": fit_launches[f"projection_{d}"],
+           "capture_launches": capture_launches[f"projection_{d}"],
+           "merge_launches": merge_launches[f"projection_{d}"],
+           "diag_launches": diag_launches[f"projection_{d}"],
+           "parallel_launches": parallel_launches[f"projection_{d}"],
+           "max_abs_err": None,
+           "ms": {f"{r['views']}x{r['hw']}": r[f"{d}_ms"]
+                  for r in projection},
+           "plain_ms": {f"{r['views']}x{r['hw']}":
+                        r["plain_ms" if d == "fwd" else "plain_bwd_ms"]
+                        for r in projection},
+           "bound_ms": {f"{r['views']}x{r['hw']}": r[f"{d}_bound_ms"]
+                        for r in projection},
+           "bound_by": "bytes", "library_ms": None}
+          for d in ("fwd", "bwd")),
         k3_entry("attention_fwd",
                  "splatformer_tpu_torch/csrc/attention_fwd.cu",
                  f"{flash_src}:342 (called at "

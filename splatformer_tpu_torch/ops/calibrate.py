@@ -18,8 +18,8 @@ import numpy as np
 import torch
 
 from splatformer_tpu_torch.ops.camera import opengl_c2w_to_opencv_w2c
-from splatformer_tpu_torch.ops.projection import project_gaussians
-from splatformer_tpu_torch.ops.render import activate_gaussians
+from splatformer_tpu_torch.ops.projection import (activate_gaussians,
+                                                  project_gaussians)
 from splatformer_tpu_torch.ops.types import (Camera, GaussianScene,
                                              RasterizeConfig)
 

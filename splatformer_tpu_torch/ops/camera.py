@@ -7,28 +7,36 @@ import torch
 
 
 def opengl_c2w_to_opencv_w2c(c2w: torch.Tensor) -> torch.Tensor:
-    """(3, 4) or (4, 4) OpenGL camera-to-world -> (4, 4) OpenCV
-    world-to-camera: flip the camera's y and z axes, then invert
-    analytically (R^T, -R^T t)."""
-    R = c2w[:3, :3]
-    t = c2w[:3, 3]
-    flip = torch.tensor([1.0, -1.0, -1.0], dtype=R.dtype, device=R.device)
-    R_inv = (R * flip[None, :]).T
-    t_inv = -torch.sum(R_inv * t[None, :], dim=-1)
-    view = torch.eye(4, dtype=R.dtype, device=R.device)
-    view[:3, :3] = R_inv
-    view[:3, 3] = t_inv
-    return view
+    """(..., 3, 4) or (..., 4, 4) OpenGL camera-to-world -> (..., 4, 4)
+    OpenCV world-to-camera: flip the camera's y and z axes, then invert
+    analytically (R^T, -R^T t). Row i of R^T is column i of R, negated for
+    the flipped axes. -R^T t is summed left to right: the order in which
+    PyTorch's CUDA reduction sums the rows of the transposed (column-major)
+    product that torch.sum(R^T * t, -1) reduces, so that every device gives
+    what that call gives on the card (and the projection kernel,
+    csrc/projection_common.cuh, repeats it)."""
+    R = c2w[..., :3, :3]
+    t = c2w[..., :3, 3]
+    R_inv = torch.stack([R[..., :, 0], -R[..., :, 1], -R[..., :, 2]], dim=-2)
+    t_inv = -(R_inv[..., 0] * t[..., 0:1] + R_inv[..., 1] * t[..., 1:2]
+              + R_inv[..., 2] * t[..., 2:3])
+    bottom = torch.zeros_like(c2w[..., :1, :4])
+    bottom[..., 0, 3] = 1.0
+    return torch.cat([torch.cat([R_inv, t_inv[..., None]], dim=-1), bottom],
+                     dim=-2)
 
 
 def normalize_quats(quats: torch.Tensor) -> torch.Tensor:
     """Normalize wxyz quaternions; near-zero-norm ones become the
-    reference's fallback [0, 0, 0, 1]."""
-    sq = torch.sum(quats * quats, dim=-1, keepdim=True)
+    reference's fallback [0, 0, 0, 1]. The squared norm is summed in the
+    order of PyTorch's CUDA reduction of four elements, (w^2 + y^2) +
+    (x^2 + z^2)."""
+    w, x, y, z = quats.unbind(-1)
+    sq = ((w * w + y * y) + (x * x + z * z))[..., None]
     ok = sq > 1e-12
     denom = torch.sqrt(torch.where(ok, sq, torch.ones_like(sq)))
-    fallback = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=quats.dtype,
-                            device=quats.device)
+    fallback = torch.zeros_like(quats)
+    fallback[..., 3] = 1.0
     return torch.where(ok, quats / denom, fallback)
 
 

@@ -41,11 +41,11 @@ import torch
 
 from splatformer_tpu_torch.ops.binning import bin_gaussians, depth_key_i32
 from splatformer_tpu_torch.ops.camera import opengl_c2w_to_opencv_w2c
-from splatformer_tpu_torch.ops.projection import project_gaussians
+from splatformer_tpu_torch.ops.projection import (activate_gaussians,
+                                                  compute_colors,
+                                                  project_gaussians)
 from splatformer_tpu_torch.ops.raster import (PACK_W, composite_packed,
                                               gather_entries, pack_entries_t)
-from splatformer_tpu_torch.ops.render import (activate_gaussians,
-                                              compute_colors)
 from splatformer_tpu_torch.ops.types import (Camera, GaussianScene,
                                              RasterizeConfig)
 from splatformer_tpu_torch.parallel.collectives import (AllToAll,

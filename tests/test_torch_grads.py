@@ -30,6 +30,7 @@ from splatformer_tpu_torch.ops.render import render_images_stats  # noqa: E402
 from splatformer_tpu_torch.ops.types import GaussianScene, RasterizeConfig  # noqa: E402
 from splatformer_tpu_torch.training.optim import (build_optimizer,  # noqa: E402
                                                   build_schedule)
+from test_torch_kernels import edge_scene  # noqa: E402
 
 @pytest.fixture(autouse=True, scope="module")
 def few_threads():
@@ -68,34 +69,52 @@ def scene_arrays(seed, n_pts=256, n_valid=230):
 # ---------------------------------------------------------------- render
 
 
-@pytest.mark.parametrize("max_intersects", [2 ** 12, 128])
-def test_render_gradients_match_jax(max_intersects):
+@pytest.mark.parametrize("max_intersects,n_views,sh_degree,edges", [
+    pytest.param(2 ** 12, 2, 1, False, id="4096"),
+    pytest.param(128, 2, 1, False, id="128"),
+    pytest.param(2 ** 12, 1, 0, True, id="edges-v1-sh0"),
+    pytest.param(2 ** 12, 3, 1, True, id="edges-v3-sh1"),
+    pytest.param(2 ** 12, 3, 2, True, id="edges-v3-sh2"),
+    pytest.param(2 ** 12, 1, 3, True, id="edges-v1-sh3")])
+def test_render_gradients_match_jax(max_intersects, n_views, sh_degree,
+                                    edges):
     """d(L1 + alpha term)/d(each of the six attributes) of the flat
     multi-view render against jax.grad through the JAX Pallas path
     (interpret mode). With the over-budget cap (128) entries are dropped
     and budget slots resolve to Gaussian 0, whose gradient must stay
-    exact. Tolerance: each attribute within 1e-4 of its largest gradient
+    exact. The edge scenes (tests/test_torch_kernels.py:edge_scene: a
+    Gaussian at a camera centre, a zero quaternion, near-plane culls,
+    frustum-clamped splats, masked slots) run 1 or 3 views at SH degrees
+    0-3. Tolerance: each attribute within 1e-4 of its largest gradient
     magnitude; masked Gaussians exactly 0."""
-    _, scene = scene_arrays(3)
+    cams_t = orbit_cameras(n_views, 32, 32, device="cpu")
+    if edges:
+        scene = {k: n(getattr(edge_scene(7, 256, sh_degree, cams_t), k))
+                 for k in FIELDS}
+    else:
+        _, scene = scene_arrays(3)
     rng = np.random.default_rng(1)
-    gt = rng.uniform(size=(2, 32, 32, 3)).astype(np.float32)
-    w_a = rng.normal(size=(2, 32, 32, 1)).astype(np.float32)
+    gt = rng.uniform(size=(n_views, 32, 32, 3)).astype(np.float32)
+    w_a = rng.normal(size=(n_views, 32, 32, 1)).astype(np.float32)
     bg = np.array([0.3, 0.1, 0.2], np.float32)
     jcfg = JaxConfig(max_intersects=max_intersects, tiles_per_gauss=16,
                      use_pallas=True)
-    cams = jax_orbit(2, 32, 32)
+    cams = jax_orbit(n_views, 32, 32)
+    attrs = [k for k in ATTRS if sh_degree or k != "features_rest"]
 
-    def jloss(attrs):
-        s = JaxScene(**attrs, mask=jnp.asarray(scene["mask"]))
+    def jloss(leaves):
+        s = JaxScene(**leaves, mask=jnp.asarray(scene["mask"]),
+                     **({} if sh_degree else
+                        {"features_rest": jnp.asarray(scene["features_rest"])}))
         rgb, alpha, st = jax_render(s, cams, jnp.asarray(bg), jcfg)
         return jnp.mean(jnp.abs(rgb - gt)) + jnp.sum(alpha * w_a), st
 
     jg, jst = jax.grad(jloss, has_aux=True)(
-        {k: jnp.asarray(scene[k]) for k in ATTRS})
+        {k: jnp.asarray(scene[k]) for k in attrs})
     leaves = {k: torch.tensor(scene[k], requires_grad=True) for k in ATTRS}
     s = GaussianScene(**leaves, mask=torch.from_numpy(scene["mask"]))
     rgb, alpha, st = render_images_stats(
-        s, orbit_cameras(2, 32, 32, device="cpu"), torch.from_numpy(bg),
+        s, cams_t, torch.from_numpy(bg),
         RasterizeConfig(max_intersects=max_intersects, tiles_per_gauss=16))
     loss = torch.mean(torch.abs(rgb - torch.from_numpy(gt))) \
         + torch.sum(alpha * torch.from_numpy(w_a))
@@ -103,7 +122,7 @@ def test_render_gradients_match_jax(max_intersects):
     assert int(st["num_dropped"]) == int(jst["num_dropped"])
     assert (int(st["num_dropped"]) > 0) == (max_intersects < 1000)
     masked = ~scene["mask"]
-    for k in ATTRS:
+    for k in attrs:
         g_t, g_j = n(leaves[k].grad), np.asarray(jg[k])
         assert np.isfinite(g_t).all(), k
         scale = float(np.abs(g_j).max())
@@ -111,6 +130,8 @@ def test_render_gradients_match_jax(max_intersects):
         err = float(np.abs(g_t - g_j).max())
         assert err <= 1e-4 * scale, (k, err, scale)
         assert not g_t[masked].any(), k
+    if edges:  # the zero quaternion's fallback passes no gradient
+        assert not n(leaves["quats"].grad)[1].any()
 
 
 # --------------------------------------------------------- ops gradients

@@ -424,3 +424,197 @@ def test_attention_replay_matches_flash_capture_on_card():
         want = rec["attn_feat"].cpu().numpy()
         assert want.dtype == np.float32
         assert np.abs(got - want).max() <= 1e-4 * np.abs(want).max(), path
+
+
+# ------------------------------------------------- P1, the fused projection
+
+ATTRS = ("means", "scales", "quats", "opacities", "features_dc",
+         "features_rest")
+
+
+def edge_scene(seed, n, sh_degree, cameras, device="cpu", n_masked=26):
+    """A random scene (torch only) whose first slots hold the projection's
+    edge cases for view 0's camera: a Gaussian at the camera centre (near
+    cull, SH direction fallback), a zero quaternion (fallback), one behind
+    the camera, one inside the near plane, four beyond the frustum clamp
+    with larger splats; the last ``n_masked`` slots are masked."""
+    from splatformer_tpu_torch.data.synthetic import random_scene
+    s = random_scene(np.random.default_rng(seed), n, sh_degree,
+                     n_valid=n - n_masked, device="cpu")
+    c2w = cameras.c2w[0].detach().cpu()
+    pos, right, up, back = c2w[:, 3], c2w[:, 0], c2w[:, 1], c2w[:, 2]
+    means, quats, scales = s.means.clone(), s.quats.clone(), s.scales.clone()
+    means[0] = pos
+    quats[1] = 0.0
+    means[2] = pos + 0.5 * back
+    means[3] = pos - 0.005 * back
+    for k, (a, b) in enumerate(((0.5, 0.1), (-0.5, -0.1), (0.1, 0.6),
+                                (-0.1, -0.6)), start=4):
+        means[k] = pos - 0.3 * back + a * right + b * up
+    scales[4:8] += 2.0
+    s = s.replace(means=means, quats=quats, scales=scales)
+    return s.replace(**{k: getattr(s, k).to(device)
+                        for k in ATTRS + ("mask",)})
+
+
+def _projection_setup(views, hw, sh_degree=1, n=100_352):
+    from splatformer_tpu_torch.data.synthetic import orbit_cameras
+    from splatformer_tpu_torch.ops.types import RasterizeConfig
+    cams = orbit_cameras(views, hw, hw)
+    return edge_scene(0, n, sh_degree, cams, "cuda"), cams, RasterizeConfig()
+
+
+def _differing_slots(k, p, n_pad):
+    """(view, slot) of every column where the kernel's outputs and the
+    plain version's are not bit-equal."""
+    cols = (k.packed_t != p.packed_t).any(dim=0)
+    for name in ("depths", "radii", "num_tiles_hit", "radii_xy"):
+        a, b = getattr(k.proj, name), getattr(p.proj, name)
+        cols |= (a != b).reshape(a.shape[0], -1).any(dim=1)
+    cols |= k.tile_offset != p.tile_offset
+    return [divmod(int(c), n_pad) for c in torch.nonzero(cols)[:, 0]]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("views,hw", [(4, 256), (16, 512)])
+def test_projection_kernel_matches_plain_on_card(views, hw):
+    """P1's forward against its plain version on the card at the serving
+    cells' shapes (100,352 slots, 4 views at 256^2, 16 at 512^2, SH degree
+    1, the edge cases and masked slots of ``edge_scene``): every output
+    bit-equal, both rounding each product and sum alone; one counted
+    launch. A failure names the differing (view, slot) pairs."""
+    _card()
+    from splatformer_tpu_torch.kernels.projection import (padded,
+                                                          project_views,
+                                                          project_views_plain)
+    scene, cams, cfg = _projection_setup(views, hw)
+    before = LAUNCHES["projection_fwd"]
+    k = project_views(scene, cams, cfg)
+    torch.cuda.synchronize()
+    assert LAUNCHES["projection_fwd"] == before + 1
+    p = project_views_plain(scene, cams, cfg)
+    slots = _differing_slots(k, p, padded(scene.num_points))
+    assert not slots, f"{len(slots)} (view, slot) pairs differ: {slots[:20]}"
+    assert int((k.proj.radii > 0).sum()) > views * 50_000  # it projected
+
+
+def _projection_grads(project, scene, cams, cfg, g_packed):
+    leaves = {k: getattr(scene, k).detach().clone().requires_grad_(True)
+              for k in ATTRS if getattr(scene, k) is not None}
+    out = project(scene.replace(**leaves), cams, cfg)
+    (out.packed_t * g_packed).sum().backward()
+    # features_rest takes no gradient at degree 0
+    return {k: x.grad for k, x in leaves.items() if x.grad is not None}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("views,hw,sh_degree,n", [
+    (4, 256, 1, 100_352), (16, 512, 1, 100_352), (3, 128, 0, 20_000),
+    (3, 128, 2, 20_000), (3, 128, 3, 20_000), (3, 128, 4, 20_000)])
+def test_projection_backward_matches_autograd_on_card(views, hw, sh_degree, n):
+    """P1's backward against the plain version's autograd on the card, with
+    a seeded dense cotangent on rows 0-8: each of the six gradients within
+    1e-5 of its largest magnitude, masked slots' opacity exactly 0, and
+    bit-identical across two runs (no atomics); one counted launch a
+    backward. At the serving cells' shapes, and at SH degrees 0-4 (the
+    forward bit-equal there too)."""
+    _card()
+    from splatformer_tpu_torch.kernels.projection import (padded,
+                                                          project_views,
+                                                          project_views_plain)
+    scene, cams, cfg = _projection_setup(views, hw, sh_degree, n)
+    gen = torch.Generator(device="cuda").manual_seed(views)
+    g_packed = torch.randn((16, views * padded(n)), generator=gen,
+                           device="cuda")
+    g_packed[9:] = 0.0
+    before = LAUNCHES["projection_bwd"]
+    g_k = _projection_grads(project_views, scene, cams, cfg, g_packed)
+    torch.cuda.synchronize()
+    assert LAUNCHES["projection_bwd"] == before + 1
+    g_k2 = _projection_grads(project_views, scene, cams, cfg, g_packed)
+    g_p = _projection_grads(project_views_plain, scene, cams, cfg, g_packed)
+    assert set(g_k) == set(g_p) == set(ATTRS[:5 + (sh_degree > 0)])
+    for name, g in g_p.items():
+        assert torch.equal(g_k[name], g_k2[name]), name
+        scale = float(g.abs().max())
+        assert scale > 0, name
+        err = float((g_k[name] - g).abs().max())
+        assert err <= 1e-5 * scale, (name, err, scale)
+    assert not bool(g_k["opacities"][~scene.mask].any())
+    if sh_degree != 1:
+        k = project_views(scene, cams, cfg)
+        p = project_views_plain(scene, cams, cfg)
+        slots = _differing_slots(k, p, padded(n))
+        assert not slots, f"{len(slots)} pairs differ: {slots[:20]}"
+
+
+@pytest.mark.cuda
+def test_projection_launches_once_a_render_on_card():
+    """A differentiable render of 4 views launches P1's forward once and,
+    in its backward, P1's backward once."""
+    _card()
+    from splatformer_tpu_torch.ops.render import render_images_stats
+    scene, cams, cfg = _projection_setup(4, 256)
+    leaves = {k: getattr(scene, k).detach().clone().requires_grad_(True)
+              for k in ATTRS}
+    reset_launches()
+    rgb, alpha, _ = render_images_stats(scene.replace(**leaves), cams,
+                                        torch.zeros(3, device="cuda"), cfg)
+    (rgb.sum() + alpha.sum()).backward()
+    torch.cuda.synchronize()
+    assert LAUNCHES["projection_fwd"] == 1
+    assert LAUNCHES["projection_bwd"] == 1
+    assert all(bool(x.grad.abs().sum() > 0) for x in leaves.values())
+
+
+@pytest.mark.cuda
+def test_projection_sums_follow_torch_reductions_on_card():
+    """The plain projection's explicit sums take the order of PyTorch's CUDA
+    reductions that its earlier form called (and the benchmark's frozen
+    reference still calls), so both give the same bits on the card: the
+    view transform's torch.sum over a contiguous row of three, the
+    quaternion's over four, the SH direction's vector_norm, and the
+    camera's -R^T t over the rows of a transposed product."""
+    _card()
+    from splatformer_tpu_torch.ops.camera import (normalize_quats,
+                                                  opengl_c2w_to_opencv_w2c)
+    from splatformer_tpu_torch.ops.projection import (compute_colors,
+                                                      project_gaussians)
+    from splatformer_tpu_torch.ops.sh import eval_sh
+    from splatformer_tpu_torch.ops.types import GaussianScene
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    c2w = torch.randn((64, 3, 4), generator=gen, device="cuda")
+    for i in range(64):
+        R, t = c2w[i, :3, :3], c2w[i, :3, 3]
+        flip = torch.tensor([1.0, -1.0, -1.0], device="cuda")
+        R_inv = (R * flip[None, :]).T
+        want = -torch.sum(R_inv * t[None, :], dim=-1)
+        assert torch.equal(opengl_c2w_to_opencv_w2c(c2w[i])[:3, 3], want)
+    q = torch.randn((100_352, 4), generator=gen, device="cuda")
+    sq = torch.sum(q * q, dim=-1, keepdim=True)
+    assert torch.equal(normalize_quats(q), q / torch.sqrt(sq))
+    means = torch.rand((100_352, 3), generator=gen, device="cuda")
+    view = opengl_c2w_to_opencv_w2c(c2w[0])
+    view[:3, 3] += torch.tensor([0.0, 0.0, 3.0], device="cuda")
+    ones = torch.ones(100_352, device="cuda")
+    proj = project_gaussians(means, ones[:, None].expand(-1, 3) * 0.01,
+                             q, view, 300.0, 300.0, 128.0, 128.0, 256, 256)
+    p_view = torch.sum(means[:, None, :] * view[None, :3, :3], dim=-1) \
+        + view[:3, 3]
+    valid = proj.radii > 0
+    assert bool(valid.any())
+    assert torch.equal(proj.depths[valid], p_view[valid, 2])
+    scene = GaussianScene(means=means, scales=means, quats=q,
+                          opacities=means[:, :1],
+                          features_dc=torch.zeros_like(means),
+                          features_rest=torch.ones((100_352, 3, 3),
+                                                   device="cuda"))
+    campos = c2w[1, :3, 3]
+    d = means - campos
+    dirs = d / torch.clamp(torch.linalg.vector_norm(d, dim=-1, keepdim=True),
+                           min=1e-12)
+    coeffs = torch.cat([scene.features_dc[:, None, :], scene.features_rest],
+                       dim=1)
+    rgb = eval_sh(1, dirs, coeffs) + 0.5
+    want = torch.maximum(rgb, torch.zeros_like(rgb))
+    assert torch.equal(compute_colors(scene, campos), want)

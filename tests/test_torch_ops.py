@@ -14,6 +14,8 @@ from splatformer_tpu.ops import binning as jbin  # noqa: E402
 from splatformer_tpu.ops import camera as jcam  # noqa: E402
 from splatformer_tpu.ops import projection as jproj  # noqa: E402
 from splatformer_tpu.ops import render as jrender  # noqa: E402
+from splatformer_tpu.ops.pallas import raster as jraster  # noqa: E402
+from splatformer_tpu.ops.types import GaussianScene as jax_gs  # noqa: E402
 from splatformer_tpu.ops import segment_ops as jseg  # noqa: E402
 from splatformer_tpu.ops import serialization as jser  # noqa: E402
 from splatformer_tpu.ops import sh as jsh  # noqa: E402
@@ -22,11 +24,14 @@ from splatformer_tpu_torch.data.synthetic import orbit_cameras, random_scene  # 
 from splatformer_tpu_torch.ops import binning as tbin  # noqa: E402
 from splatformer_tpu_torch.ops import camera as tcam  # noqa: E402
 from splatformer_tpu_torch.ops import projection as tproj  # noqa: E402
-from splatformer_tpu_torch.ops import render as trender  # noqa: E402
 from splatformer_tpu_torch.ops import segment_ops as tseg  # noqa: E402
 from splatformer_tpu_torch.ops import serialization as tser  # noqa: E402
 from splatformer_tpu_torch.ops import sh as tsh  # noqa: E402
 from splatformer_tpu_torch.ops import sparse_conv as tconv  # noqa: E402
+from splatformer_tpu_torch.kernels.projection import (padded,  # noqa: E402
+                                                      project_views_plain)
+from splatformer_tpu_torch.ops.types import RasterizeConfig  # noqa: E402
+from test_torch_kernels import edge_scene  # noqa: E402
 
 
 def t(x):
@@ -76,22 +81,39 @@ def test_eval_sh(rng, degree):
           jsh.eval_sh(degree, jnp.asarray(d), jnp.asarray(coeffs)), 1e-6)
 
 
-@pytest.mark.parametrize("sh_degree", [0, 1])
+def _jax_of(ts):
+    """The JAX package's GaussianScene holding a port scene's values."""
+    return jax_gs(**{k: jnp.asarray(n(getattr(ts, k))) for k in
+                     ("means", "scales", "quats", "opacities", "features_dc",
+                      "features_rest", "mask")})
+
+
+@pytest.mark.parametrize("sh_degree", [0, 1, 2, 3])
 def test_activation_and_colors(sh_degree):
+    """Activations, and the colours of one view and of 1 or 3 views at
+    once (the batched plain version's leading view axis) against the JAX
+    package's per-view compute_colors; one Gaussian exactly at a camera."""
     js = jax_scene(np.random.default_rng(5), 128, sh_degree=sh_degree)
     ts = random_scene(np.random.default_rng(5), 128, sh_degree=sh_degree,
                       device="cpu")
     campos = np.asarray(js.means[7])  # one Gaussian exactly at the camera
-    ja, ta = jrender.activate_gaussians(js), trender.activate_gaussians(ts)
+    ja, ta = jrender.activate_gaussians(js), tproj.activate_gaussians(ts)
     for k in ("means", "scales", "quats", "opacities"):
         close(ta[k], ja[k], 1e-6)
     cj = jrender.compute_colors(js, jnp.asarray(campos))
-    ct = trender.compute_colors(ts, t(campos))
+    ct = tproj.compute_colors(ts, t(campos))
     close(ct, cj, 1e-6)
+    for v in (1, 3):
+        cams = np.asarray(jax_orbit(v, 32, 32).c2w)[:, :3, 3].copy()
+        cams[0] = campos
+        ct = tproj.compute_colors(ts, t(cams))
+        for i in range(v):
+            cj = jrender.compute_colors(js, jnp.asarray(cams[i]))
+            close(ct if sh_degree == 0 else ct[i], cj, 1e-6)
 
 
 def _project_both(js, ts, cam_j, cam_t, i, h, w):
-    ja, ta = jrender.activate_gaussians(js), trender.activate_gaussians(ts)
+    ja, ta = jrender.activate_gaussians(js), tproj.activate_gaussians(ts)
     mj = js.valid_mask()
     op_j = jnp.where(mj, ja["opacities"], 0.0)
     op_t = torch.where(ts.valid_mask(), ta["opacities"], 0.0)
@@ -108,19 +130,89 @@ def _project_both(js, ts, cam_j, cam_t, i, h, w):
     return pj, pt
 
 
-@pytest.mark.parametrize("view", [0, 1, 2])
-def test_projection(scenes, view):
-    js, ts = scenes
-    cj, ct = jax_orbit(3, 48, 40), orbit_cameras(3, 48, 40, device="cpu")
-    pj, pt = _project_both(js, ts, cj, ct, view, 48, 40)
-    live = n(pj.radii) > 0
-    assert live.sum() > 50
-    for k in ("xys", "conics"):
-        close(getattr(pt, k)[live], n(getattr(pj, k))[live], 1e-5)
-    close(pt.depths, pj.depths, 1e-5)
-    equal(pt.radii, pj.radii)
-    equal(pt.num_tiles_hit, pj.num_tiles_hit)
-    equal(pt.radii_xy, pj.radii_xy)
+def _check_flat_views(js, ts, cam_j, cam_t, h, w, views):
+    """The batched plain projection of all views in the flat layout
+    (kernels/projection.py:project_views_plain) against the JAX package's
+    per-view project_gaussians, compute_colors and pack_entries_t."""
+    out = project_views_plain(ts, cam_t, RasterizeConfig())
+    n_pts = ts.num_points
+    n_pad = padded(n_pts)
+    ja = jrender.activate_gaussians(js)
+    op_j = jnp.where(js.valid_mask(), ja["opacities"], 0.0)
+    tiles = ((w + 15) // 16) * ((h + 15) // 16)
+    for i in views:
+        pj = jproj.project_gaussians(
+            ja["means"], ja["scales"], ja["quats"],
+            jcam.opengl_c2w_to_opencv_w2c(cam_j.c2w[i]),
+            cam_j.fx[i], cam_j.fy[i], cam_j.cx[i], cam_j.cy[i], h, w,
+            mask=js.valid_mask(), opacities=op_j)
+        colors = jrender.compute_colors(js, cam_j.c2w[i][:3, 3])
+        packed = n(jraster.pack_entries_t(pj.xys, pj.conics, colors, op_j))
+        cols = slice(i * n_pad, (i + 1) * n_pad)
+        live = n(pj.radii) > 0
+        got = n(out.packed_t[:, cols])
+        np.testing.assert_allclose(got[:, :n_pts][:, live],
+                                   packed[:, :n_pts][:, live],
+                                   rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(got[5:], packed[5:], rtol=0, atol=1e-6)
+        assert not got[:, n_pts:].any()
+        proj = out.proj
+        equal(proj.radii[cols][:n_pts], pj.radii)
+        equal(proj.num_tiles_hit[cols][:n_pts], pj.num_tiles_hit)
+        equal(proj.radii_xy[cols][:n_pts], pj.radii_xy)
+        close(proj.depths[cols][:n_pts], pj.depths, 1e-5)
+        assert torch.isinf(proj.depths[cols][n_pts:]).all()
+        assert not proj.radii[cols][n_pts:].any()
+        equal(out.tile_offset[cols], np.full(n_pad, i * tiles))
+        equal(proj.xys[cols], out.packed_t[0:2, cols].T)
+    return out
+
+
+@pytest.mark.parametrize("n_views,view,sh_degree,edges", [
+    pytest.param(3, 0, 1, False, id="0"),
+    pytest.param(3, 1, 1, False, id="1"),
+    pytest.param(3, 2, 1, False, id="2"),
+    pytest.param(1, None, 0, True, id="edges-v1-sh0"),
+    pytest.param(3, None, 1, True, id="edges-v3-sh1"),
+    pytest.param(1, None, 2, True, id="edges-v1-sh2"),
+    pytest.param(3, None, 3, True, id="edges-v3-sh3")])
+def test_projection(scenes, n_views, view, sh_degree, edges):
+    """One view of project_gaussians against the JAX package, then the
+    batched plain projection of V views (all of them, or view ``view``)
+    against its per-view functions. The edge scenes hold a Gaussian at a
+    camera centre, a zero quaternion, near-plane culls, frustum-clamped
+    splats and masked slots (tests/test_torch_kernels.py:edge_scene)."""
+    h, w = 48, 40
+    cj = jax_orbit(n_views, h, w)
+    ct = orbit_cameras(n_views, h, w, device="cpu")
+    if edges:
+        ts = edge_scene(4, 256, sh_degree, ct)
+        js = _jax_of(ts)
+    else:
+        js, ts = scenes
+    views = range(n_views) if view is None else [view]
+    for i in views:
+        pj, pt = _project_both(js, ts, cj, ct, i, h, w)
+        live = n(pj.radii) > 0
+        assert live.sum() > 50
+        # the edge scenes' splats beside the camera reach tens of pixels off
+        # screen, where float32 rounding differs by a few ulps
+        rtol = 1e-6 if edges else 0.0
+        for k in ("xys", "conics"):
+            np.testing.assert_allclose(getattr(pt, k)[live],
+                                       n(getattr(pj, k))[live], rtol=rtol,
+                                       atol=1e-5)
+        close(pt.depths, pj.depths, 1e-5)
+        equal(pt.radii, pj.radii)
+        equal(pt.num_tiles_hit, pj.num_tiles_hit)
+        equal(pt.radii_xy, pj.radii_xy)
+    out = _check_flat_views(js, ts, cj, ct, h, w, views)
+    if edges:
+        radii = out.proj.radii.reshape(n_views, -1)
+        assert not radii[0, [0, 2, 3]].any()  # at, behind, inside camera 0
+        assert not radii[:, 230:256].any()    # masked
+        assert bool(out.proj.radii_xy.reshape(n_views, -1, 2)[0, 4:8]
+                    .gt(0).any())             # clamped splats are drawn
 
 
 def _jax_proj_to_torch(pj):

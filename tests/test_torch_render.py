@@ -19,6 +19,7 @@ from splatformer_tpu_torch.data.synthetic import orbit_cameras, random_scene  # 
 from splatformer_tpu_torch.kernels import LAUNCHES  # noqa: E402
 from splatformer_tpu_torch.kernels.composite import (composite_fwd,  # noqa: E402
                                                      composite_fwd_plain)
+from splatformer_tpu_torch.kernels.projection import project_views  # noqa: E402
 from splatformer_tpu_torch.ops.raster import composite_packed  # noqa: E402
 from splatformer_tpu_torch.ops.render import (prepare_entries,  # noqa: E402
                                               render_images_stats)
@@ -108,16 +109,27 @@ def test_composite_plain_walked_counts(setup):
     assert (ref_walked < np.diff(n(e.tile_start))[:, None]).any()  # breaks
 
 
-@pytest.mark.parametrize("max_intersects", [2 ** 12, 128])
-def test_render_images_stats_matches_jax(setup, max_intersects):
+@pytest.mark.parametrize("max_intersects,n_views,sh_degree", [
+    pytest.param(2 ** 12, 2, 1, id="4096"),
+    pytest.param(128, 2, 1, id="128"),
+    pytest.param(2 ** 12, 1, 0, id="v1-sh0"),
+    pytest.param(2 ** 12, 1, 3, id="v1-sh3")])
+def test_render_images_stats_matches_jax(setup, max_intersects, n_views,
+                                         sh_degree):
     """The whole flat multi-view render against the JAX package's Pallas
-    path (interpret mode), with an ample and an over-budget intersect cap."""
+    path (interpret mode), with an ample and an over-budget intersect cap,
+    and with one view at SH degrees 0 and 3."""
     scene, cams, _ = setup
+    if (n_views, sh_degree) != (2, 1):
+        scene = random_scene(np.random.default_rng(3), 256, sh_degree,
+                             n_valid=230, device="cpu")
+        cams = orbit_cameras(n_views, 32, 32, device="cpu")
     cfg = RasterizeConfig(max_intersects=max_intersects, tiles_per_gauss=16)
     jcfg = JaxConfig(max_intersects=max_intersects, tiles_per_gauss=16,
                      use_pallas=True)
-    jscene = jax_scene(np.random.default_rng(3), 256, sh_degree=1, n_valid=230)
-    rgb_j, al_j, st_j = jax_render(jscene, jax_orbit(2, 32, 32),
+    jscene = jax_scene(np.random.default_rng(3), 256, sh_degree=sh_degree,
+                       n_valid=230)
+    rgb_j, al_j, st_j = jax_render(jscene, jax_orbit(n_views, 32, 32),
                                    jnp.asarray(BG), jcfg)
     rgb_t, al_t, st_t = render_images_stats(scene, cams, torch.tensor(BG), cfg)
     np.testing.assert_allclose(n(rgb_t), n(rgb_j), rtol=0, atol=1e-5)
@@ -125,6 +137,25 @@ def test_render_images_stats_matches_jax(setup, max_intersects):
     for k in ("num_dropped", "num_entries"):
         assert int(st_t[k]) == int(st_j[k]), k
     assert (int(st_t["num_dropped"]) > 0) == (max_intersects < 1000)
+
+
+def test_projection_wrapper_devices(setup):
+    """CPU tensors take the fused projection's plain version without
+    counting a launch, in the flat layout the binning reads; a device with
+    no kernel raises instead of falling back."""
+    scene, cams, cfg = setup
+    before = dict(LAUNCHES)
+    views = project_views(scene, cams, cfg)
+    assert LAUNCHES == before
+    assert views.packed_t.shape == (16, 2 * 256)
+    assert views.proj.radii.shape == views.tile_offset.shape == (512,)
+    assert views.proj.xys.shape == (512, 2)
+    assert views.tile_offset.tolist() == [0] * 256 + [4] * 256
+    with pytest.raises(ValueError):
+        project_views(scene.replace(**{
+            k: getattr(scene, k).to("meta") for k in
+            ("means", "scales", "quats", "opacities", "features_dc",
+             "features_rest", "mask")}), cams, cfg)
 
 
 def test_composite_wrapper_devices(setup):

@@ -163,6 +163,10 @@ def test_eval_and_train_steps_give_the_span_tree(info):
     assert t0 <= roots[0]["start_ns"] and roots[0]["end_ns"] <= t1
     assert t1 <= roots[1]["start_ns"] and roots[1]["end_ns"] <= t2
     assert all(s["ms"] >= 0 for s in spans)
+    # the fused projection covered both views of each render, once
+    views = [(c["value"], c["id"]) for c in tracing.snapshot()["counters"]
+             if c["name"] == "render.project.views"]
+    assert views == [(2, roots[0]["id"]), (2, roots[1]["id"])]
 
 
 def harness_stage_counts(model, monkeypatch, forward):
@@ -271,6 +275,26 @@ def test_tracing_adds_no_synchronisation_on_card():
     assert sync_count(steps) == untraced
     names = {s["name"] for s in tracing.snapshot()["spans"]}
     assert {"eval_step", "train_step", "render.composite"} <= names
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("views,hw", [(4, 256), (16, 512)])
+def test_projection_does_not_synchronise_on_card(views, hw):
+    """The body of ``render.project`` (the fused projection of every view)
+    makes no synchronising call, at the serving cells' shapes, and counts
+    its views once."""
+    _card()
+    from splatformer_tpu_torch.kernels.projection import project_views
+    from splatformer_tpu_torch.ops.render import prepare_entries
+    scene = random_scene(np.random.default_rng(0), 100_352, 1, 100_000)
+    cams = orbit_cameras(views, hw, hw)
+    project_views(scene, cams, RCFG)     # the kernel's first load
+    torch.cuda.synchronize()
+    assert sync_count(lambda: project_views(scene, cams, RCFG)) == 0
+    tracing.enable("cuda")
+    prepare_entries(scene, cams, RCFG)
+    assert [c["value"] for c in tracing.snapshot()["counters"]
+            if c["name"] == "render.project.views"] == [views]
 
 
 @pytest.mark.cuda
