@@ -11,8 +11,9 @@ program against the reference (the lower reading) and of the control (the
 reference in the precision below the configuration's, in the program's
 place) against the reference (the upper reading); with ``--faults``, the
 numbers of runs with a fault of lib/faults.py planted. Serving cells take TF32
-products and bfloat16 render entries as the control, training cells float8
-(e4m3, scaled) products inside the bfloat16 blocks."""
+products and bfloat16 render entries as the control; training cells the
+precision below the recipe's blocks: float8 (e4m3, scaled) products inside
+bfloat16 blocks, or bfloat16 blocks where the recipe keeps them float32."""
 import argparse
 import json
 import sys
@@ -24,7 +25,14 @@ sys.path.insert(0, str(ROOT))
 
 from perfbench.lib import harness  # noqa: E402
 
-CONTROL = {"serve": "tf32", "train": "fp8"}
+
+def control_mode(cell) -> str:
+    """The control's precision for a cell (precision.py's modes, and
+    ``bf16`` for bfloat16 blocks)."""
+    tr = cell["traffic"]
+    if tr["kind"] == "serve":
+        return "tf32"
+    return "fp8" if tr["recipe"]["bf16"] else "bf16"
 
 
 def planted(cell, seed: int, seconds: float, device, name: str) -> dict:
@@ -52,7 +60,7 @@ def runner(cell, seed: int, device):
 
 def readings(cell, seed: int, seconds: float, device) -> dict:
     import torch
-    kind = cell["traffic"]["kind"]
+    mode = control_mode(cell)
     d = runner(cell, seed, device)
     t0 = time.perf_counter()
     d.setup()
@@ -61,12 +69,12 @@ def readings(cell, seed: int, seconds: float, device) -> dict:
     t1 = time.perf_counter()
     program = d.numbers()
     t2 = time.perf_counter()
-    control = d.numbers(lower=CONTROL[kind])
+    control = d.numbers(lower=mode)
     t3 = time.perf_counter()
     if torch.device(device).type == "cuda":
         torch.cuda.empty_cache()
     return {"seed": seed, "program": program, "control": control,
-            "control_mode": CONTROL[kind], "setup_and_window_s": t1 - t0,
+            "control_mode": mode, "setup_and_window_s": t1 - t0,
             "reference_s": t2 - t1, "control_s": t3 - t2}
 
 

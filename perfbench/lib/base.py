@@ -1,5 +1,9 @@
 """What the serving and the training runners share: the seeded weights,
-the pool, the spans and counters of traced runs, and the trace's end."""
+the pool, the spans and counters of traced runs, and the trace's end.
+
+A traced run also turns the program's own tracer on before its warm-up,
+clears it where the traced part starts and takes its snapshot where that
+part ends (then turns it off); untraced runs never turn it on."""
 from __future__ import annotations
 
 import time
@@ -8,7 +12,7 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-from perfbench.lib import program, scenes, spans, trace, weights
+from perfbench.lib import program, program_trace, scenes, spans, trace, weights
 
 
 class Runner:
@@ -52,11 +56,21 @@ class Runner:
         self.order = np.random.default_rng([self.seed, 4]).permutation(
             tr["pool"])
 
+    def install_tracing(self) -> None:
+        """Before the warm-up of a traced run: the harness's spans and
+        counters, and the program's tracer on."""
+        self.install_spans()
+        program.tracing.enable(self.device)
+
     def install_spans(self) -> None:
         """Spans around the refine (hooks on the FeaturePredictor) and the
         render (the render_images_stats that the step looks up), and
-        counters of each stage's live points and kernel-map pairs."""
+        counters of each stage's live points and kernel-map pairs and of
+        the scene's live points, at which the heads run."""
         spans.wrap_module(self.model, self.spans, "refine")
+        self.model.register_forward_hook(
+            lambda m, a, o: self.counts.append(("live", None,
+                                                o.valid_mask().sum())))
         mod = program.train_step_module
         mod.render_images_stats = spans.wrap_function(
             mod.render_images_stats, self.spans, "render")
@@ -80,6 +94,7 @@ class Runner:
         profiler."""
         self.counts.clear()
         self.spans.clear()
+        program.tracing.clear()
         self.prof = trace.profiler(self.device)
         self.prof.start()
 
@@ -93,15 +108,26 @@ class Runner:
         self.stopped, self.prof = self.prof, None
         self.traced_counts = len(self.counts)
         self.traced_spans = list(self.spans.host)
+        self.program_snap = program.tracing.snapshot()
+        program.tracing.disable()
+        program.tracing.clear()
 
     def traced_measures(self) -> Dict:
-        return {"trace": trace.reduce(self.stopped, tuple(self.trace_ns),
-                                      self.traced_spans),
-                "spans_ms": self.spans.ms(), "stage_counts": self.stages()}
+        """The trace's reduction with the program's spans beside the
+        harness's, the harness's spans and stage counts, and the program's
+        spans and counters by request or step."""
+        snap = self.program_snap
+        ms, counts = program_trace.per_root(snap)
+        return {"trace": program_trace.reduce(
+                    self.stopped, tuple(self.trace_ns), self.traced_spans,
+                    snap),
+                "spans_ms": self.spans.ms(), "stage_counts": self.stages(),
+                "program_spans_ms": ms, "program_counters": counts}
 
     def stages(self) -> List[Dict]:
-        """Per forward of the traced part: live points of each stage and
-        the kernel-map pairs of each stage."""
+        """Per forward of the traced part: live points of each stage, the
+        kernel-map pairs of each stage and the scene's live points
+        (``live``)."""
         per, cur = [], None
         for kind, s, v in self.counts[:self.traced_counts]:
             if kind == "points" and s == 0:
@@ -109,6 +135,8 @@ class Runner:
                 per.append(cur)
             if kind == "pairs":
                 cur["pairs"].append(float(v))
+            elif kind == "live":
+                cur["live"] = float(v)
             else:
                 cur["points"][s] = float(v)
         return per

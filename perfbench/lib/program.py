@@ -1,7 +1,8 @@
 """Everything the harness takes from the program, splatformer_tpu_torch:
 its model, its eval and train steps, its optimizer and LPIPS modules, its
-render (for the ground truth and the raster calibration) and its launch
-counters. No other harness file imports the program."""
+render (for the ground truth and the raster calibration), its launch
+counters and its tracer (its own spans and counters, read in traced runs).
+No other harness file imports the program."""
 from __future__ import annotations
 
 import dataclasses
@@ -9,6 +10,7 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from splatformer_tpu_torch import tracing
 from splatformer_tpu_torch.configs.model_ptv3_base import (BackboneConfig,
                                                            ModelConfig)
 from splatformer_tpu_torch.kernels import LAUNCHES
@@ -27,7 +29,7 @@ from splatformer_tpu_torch.training.train_step import (SceneBatch,
 
 __all__ = ["LAUNCHES", "LPIPS", "SceneBatch", "build_model", "build_optimizer",
            "calibrate", "camera", "make_eval_step", "make_train_step",
-           "ptv3_module", "render", "scene", "train_step_module"]
+           "ptv3_module", "render", "scene", "tracing", "train_step_module"]
 
 
 def model_config(model: Dict[str, Any]) -> ModelConfig:

@@ -2,8 +2,8 @@
 in a traced run: the trace's reduction with them beside the harness's
 spans, and their records grouped by request or step.
 
-The program's tracer is off unless its caller turns it on. A runner that
-reads it calls the tracer's ``enable(device)`` before the warm-up, its
+The program's tracer is off unless its caller turns it on. A traced run
+(lib/base.py) calls the tracer's ``enable(device)`` before the warm-up, its
 ``clear()`` where the traced part starts and its ``snapshot()`` where it
 ends, then hands the snapshot to ``reduce`` (in place of lib/trace.py's
 ``reduce``) and to ``per_root``. Nothing here imports the program."""
@@ -94,10 +94,10 @@ def idle_within(gaps: List[Tuple[int, int]], spans: List[Dict]
     return dict(out)
 
 
-def launches(events) -> List[int]:
-    """The host ns of each kernel launch in the trace: the record of its
-    launch call (``cudaLaunchKernel``, ``cuLaunchKernel``) that shares the
-    kernel's correlation id. Copies
+def kernels(events) -> List[Tuple[int, float]]:
+    """(host ns of its launch, device seconds) of each kernel in the trace:
+    the launch is the record of its launch call (``cudaLaunchKernel``,
+    ``cuLaunchKernel``) that shares the kernel's correlation id. Copies
     and memsets are left out, as lib/trace.py leaves them out of
     ``launches``; a kernel whose launch has no record gives -1. The
     records carry no usable thread (a CUDA-only trace gives every one the
@@ -106,9 +106,25 @@ def launches(events) -> List[int]:
     for e in events:
         if not _on_device(e) and e.correlation_id():
             host.setdefault(e.correlation_id(), e.start_ns())
-    return [host.get(e.correlation_id(), -1) for e in events
+    return [(host.get(e.correlation_id(), -1), e.duration_ns() * 1e-9)
+            for e in events
             if _on_device(e) and not e.name().startswith(trace._NOT_KERNELS)
             and not e.name().startswith("pb:")]
+
+
+def device_within(ks: List[Tuple[int, float]], spans: List[Dict]
+                  ) -> Dict[str, float]:
+    """{name: device seconds of the kernels launched inside a span of that
+    name, at any depth}, from ``kernels``' (launch ns, seconds); a kernel
+    launched while autograd's thread runs the backward counts in
+    ``backward``, as in ``launches_by_span``."""
+    out: Dict[str, float] = defaultdict(float)
+    up = _names_up(spans)
+    for (t, sec), i in zip(ks, _innermost([t for t, _ in ks], spans)):
+        if t >= 0 and i is not None:
+            for name in up(i):
+                out[name] += sec
+    return dict(out)
 
 
 def launches_by_span(times: List[int], spans: List[Dict]
@@ -141,14 +157,17 @@ def reduce(prof, window_ns: Tuple[int, int],
     ``window_s``, ``kernels`` and ``launches`` as it gives them, ``idle``
     labelled by the innermost span open at each gap's middle, the
     harness's or the program's, and besides ``idle_within`` {name: s},
-    ``launches_by_span`` {innermost name: n} and ``launches_within``
-    {name: n, at any depth}."""
+    ``launches_by_span`` {innermost name: n}, ``launches_within`` {name:
+    n, at any depth} and ``device_within`` {name: kernel seconds launched
+    inside it, at any depth}."""
     out = trace.reduce(prof, window_ns, list(spans) + host_spans(snap))
     events = list(prof.profiler.kineto_results.events())
     out["idle_within"] = idle_within(idle_gaps(events, window_ns),
                                      snap["spans"])
+    ks = kernels(events)
     out["launches_by_span"], out["launches_within"] = launches_by_span(
-        launches(events), snap["spans"])
+        [t for t, _ in ks], snap["spans"])
+    out["device_within"] = device_within(ks, snap["spans"])
     return out
 
 

@@ -1,6 +1,8 @@
 """Arithmetic the metric readers share: the traced forwards' time at the
-peaks (the ``mfu`` metrics), K3's least time (the ``*_roofline`` metrics)
-and device time by kernel name."""
+peaks (the ``mfu`` metrics), K3's least time (the ``*_roofline`` metrics),
+device time by kernel name, and the program's own spans and counters of
+the traced part (``program_span_ms``, ``program_counter``,
+``device_within_s``)."""
 from __future__ import annotations
 
 import statistics
@@ -39,7 +41,7 @@ def forward_peak_s(run, rec: Dict) -> float:
     n_stages = len(bk["enc_depths"])
     f = counters.model_flops(bk, head_channels(model),
                              stage_points(rec, n_stages), rec["pairs"],
-                             model["additional_info"])
+                             model["additional_info"], rec["live"])
     train = run.kind == "train"
     low = train and bf16(run)
     block_peak = counters.PEAK_BF16 if low else counters.PEAK_F32
@@ -88,12 +90,14 @@ def k3_roofline(run, backward: bool) -> Optional[float]:
     dev = sum(device_s(run, p) for p in parts)
     if dev <= 0:
         return None
-    bk = backbone_kwargs(_model(run)["backbone"])
-    pad = run.cell["config"]["scene"]["pad_to"]
+    model = _model(run)
+    bk = backbone_kwargs(model["backbone"])
+    rows = counters.backbone_rows(model["additional_info"],
+                                  run.cell["config"]["scene"]["pad_to"])
     low = run.kind == "train" and bf16(run)
-    bound = counters.k3_forward_bound_s(bk, pad, low, False)
+    bound = counters.k3_forward_bound_s(bk, rows, low, False)
     if backward:
-        bound += counters.k3_forward_bound_s(bk, pad, low, True)
+        bound += counters.k3_forward_bound_s(bk, rows, low, True)
     return 100.0 * bound * len(run.stage_counts) / dev
 
 
@@ -107,3 +111,34 @@ def idle_share(run) -> Optional[float]:
     if not t or t["busy_s"] <= 0:
         return None
     return 100.0 * (1.0 - t["busy_s"] / t["window_s"])
+
+
+def _roots(run, key: str) -> List[Dict[str, float]]:
+    return getattr(run, key, None) or []
+
+
+def program_span_ms(run, name: str) -> Optional[float]:
+    """The mean ms a request or step of the traced part spent in the
+    program's spans named ``name`` (summed where it opens several times),
+    or None where no request or step opened one."""
+    roots = _roots(run, "program_spans_ms")
+    if not any(name in r for r in roots):
+        return None
+    return sum(r.get(name, 0.0) for r in roots) / len(roots)
+
+
+def program_counter(run, name: str) -> Optional[float]:
+    """The mean a request or step of the program's counter ``name`` over
+    the traced part, or None where none recorded it."""
+    vals = [r[name] for r in _roots(run, "program_counters") if name in r]
+    return sum(vals) / len(vals) if vals else None
+
+
+def device_within_s(run, name: str) -> Optional[float]:
+    """The mean device seconds a request or step of the kernels launched
+    inside the program's spans named ``name``, at any depth, or None where
+    the trace placed none there."""
+    t = getattr(run, "trace", None) or {}
+    s = (t.get("device_within") or {}).get(name)
+    roots = _roots(run, "program_spans_ms")
+    return s / len(roots) if s and roots else None

@@ -24,7 +24,7 @@ class Serve(Runner):
         self.step = program.make_eval_step(self.model, self.rcfg)
         self.model.register_forward_hook(self._keep_refined)
         if self.traced:
-            self.install_spans()
+            self.install_tracing()
         if self.plant is not None:
             self.plant(self)
         for i in range(self.tr["warmup"]):

@@ -46,7 +46,7 @@ class Train(Runner):
             lpips_loss_weight=r["lpips_loss_weight"], lpips=self.lpips)
         self.gen = torch.Generator(device=dev)
         if self.traced:
-            self.install_spans()
+            self.install_tracing()
             self.opt.step = spans.wrap_function(self.opt.step, self.spans,
                                                 "optimizer")
         if self.plant is not None:
@@ -120,13 +120,14 @@ class Train(Runner):
     def reference_steps(self, lower=None) -> Dict:
         """The reference through the checked steps, from the seeded weights,
         on the same scenes, backgrounds and draws; ``lower`` runs it in the
-        program's place in the precision below the blocks' (the
-        control)."""
+        program's place in the precision below the blocks' (the control):
+        bfloat16 blocks (``bf16``: the control of a float32 recipe), their
+        products' operands rounded by ``lower`` otherwise."""
         r, dev = self.tr["recipe"], self.device
-        dtype = torch.bfloat16 if (lower and r["bf16"]) else None
-        ref = reference.build_model(self.cfg["model"], dev, dtype)
+        ref = reference.build_model(self.cfg["model"], dev,
+                                    torch.bfloat16 if lower else None)
         weights.load(ref, self.model_state(ref))
-        reference.set_block_rounding(ref, lower)
+        reference.set_block_rounding(ref, None if lower == "bf16" else lower)
         with torch.device(dev):
             lp = ReferenceLPIPS()
         weights.load(lp, self.lpips_state(lp))

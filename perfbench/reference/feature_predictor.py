@@ -1,6 +1,6 @@
 """FeaturePredictor: Gaussian-attribute refinement heads over PTv3 (a
 frozen copy of splatformer_tpu_torch/models/feature_predictor.py without
-input downsampling, SpUNet and the process group).
+SpUNet and the process group).
 
 Input feature = the per-Gaussian attributes concatenated in the configured
 order; PTv3 over the means voxelised at grid_resolution; the input
@@ -9,7 +9,13 @@ output attribute; residual ('res': in + act(head)) or direct ('dc')
 outputs; padded slots untouched. Training shuffles PTv3's four
 serialization orders with a permutation drawn from the caller's generator,
 which DropPath also draws from; ``compute_dtype`` applies inside PTv3's
-blocks, the heads stay float32."""
+blocks, the heads stay float32.
+
+With ``additional_info["downsample"]`` (fps, voxel, random) the backbone
+runs on the reduced set of downsample.py and its outputs are mapped back to
+every point before the heads, which see the full-resolution input
+features; training draws random keep's scores from the caller's generator
+before the order shuffle, evaluation from a CPU generator seeded 0."""
 from __future__ import annotations
 
 import math
@@ -19,6 +25,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from perfbench.reference.downsample import downsample_dispatch
 from perfbench.reference.point import make_point_batch
 from perfbench.reference.ptv3 import PointTransformerV3
 from perfbench.reference import merging
@@ -120,8 +127,11 @@ class FeaturePredictor(nn.Module):
                               device=gdev).to(dev)
 
         info = self.additional_info
+        coord, feat_full, mask_ds, up = scene.means, feat, mask, None
         if info.get("downsample"):
-            raise NotImplementedError("input downsampling")
+            coord, feat, mask_ds, up = downsample_dispatch(
+                info["downsample"], info, coord, feat, mask,
+                draw if self.training else None)
 
         perm = None
         if self.training:
@@ -130,7 +140,7 @@ class FeaturePredictor(nn.Module):
                 perm = torch.randperm(len(ORDERS), generator=generator,
                                       device=gdev)
             perm = perm.to(device=dev, dtype=torch.int64)
-        pb = make_point_batch(scene.means, feat, mask,
+        pb = make_point_batch(coord, feat, mask_ds,
                               grid_resolution=self.grid_resolution,
                               order_shuffle=perm)
         uniform = None
@@ -141,8 +151,10 @@ class FeaturePredictor(nn.Module):
             else:
                 uniform = draw
         y = self.backbone(pb, generator, uniform)
+        if up is not None:
+            y = up(y)  # the reduced set's outputs back on every point
         if self.input_feat_to_mlp:
-            y = torch.cat([y, feat], dim=1)
+            y = torch.cat([y, feat_full], dim=1)
 
         out = {}
         for f in self.output_features:

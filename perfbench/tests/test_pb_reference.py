@@ -34,7 +34,7 @@ def run(workload, plant=None):
 
 
 @pytest.mark.parametrize("workload", ["serve_flash", "serve_tome",
-                                      "train_flash"])
+                                      "train_flash", "train_flash_f32"])
 def test_a_sound_run_is_correct(workload):
     out = run(workload)
     assert out["correct"], out["checks"]
@@ -44,7 +44,7 @@ def test_a_sound_run_is_correct(workload):
 
 
 @pytest.mark.parametrize("workload,fault", [
-    (w, f) for w in ("serve_flash", "train_flash")
+    (w, f) for w in ("serve_flash", "train_flash", "train_flash_f32")
     for f in FAULTS[tiny_cell(w)["traffic"]["kind"]]])
 def test_a_planted_fault_is_not_correct(workload, fault):
     kind = tiny_cell(workload)["traffic"]["kind"]
@@ -52,11 +52,18 @@ def test_a_planted_fault_is_not_correct(workload, fault):
     assert not out["correct"], out["checks"]
 
 
-@pytest.mark.parametrize("workload", ["serve_flash", "train_flash"])
-def test_the_control_is_not_correct(workload):
-    """The reference in TF32 (serving) or float8 blocks (training) in the
-    program's place fails the cell's limits."""
+@pytest.mark.parametrize("workload,mode,fails", [
+    ("serve_flash", "tf32", ()), ("train_flash", "fp8", ()),
+    ("train_flash_f32", "bf16", ("refine1_rms_gap", "grad_gap"))])
+def test_the_control_is_not_correct(workload, mode, fails):
+    """The reference in TF32 (serving), float8 products in bfloat16 blocks
+    (a bfloat16 recipe) or bfloat16 blocks (a float32 recipe) in the
+    program's place fails the cell's limits, and each number in ``fails``
+    (those it fails on every seed on the card)."""
     cell = tiny_cell(workload)
     r = control.readings(cell, SEED, 0.5, "cpu")
+    assert r["control_mode"] == mode
     assert compare.passed(compare.verdict(r["program"], cell["limits"]))
     assert not compare.passed(compare.verdict(r["control"], cell["limits"]))
+    for name in fails:
+        assert r["control"][name] > cell["limits"][name], name

@@ -1,14 +1,17 @@
 """lib/program_trace.py: the trace's reduction with the program's spans
 beside the harness's, on a synthetic trace, and the program's records of
-a tiny traced run on the CPU grouped by request or step."""
+a tiny traced run on the CPU grouped by request or step, as the runners
+(lib/base.py) take them and the metric readers read them."""
 from __future__ import annotations
 
-import time
+from types import SimpleNamespace
 
 import pytest
 import torch
 
-from perfbench.lib import harness, program_trace, trace
+from perfbench.lib import compare, harness, program_trace, readers, trace
+from perfbench.lib.serve import Serve
+from perfbench.lib.train import Train
 from perfbench.tests.tiny import tiny_cell
 from splatformer_tpu_torch import tracing
 
@@ -87,13 +90,17 @@ def test_reduce_keeps_the_harness_numbers_and_adds_the_programs():
     assert both["launches_within"] == {"eval_step": 3, "refine": 2,
                                        "refine.enc0": 1, "render": 1,
                                        "render.bin": 1}
+    # the kernels' device time by the spans their launches lie in
+    assert both["device_within"] == pytest.approx({
+        "eval_step": 30e-9, "refine": 20e-9, "refine.enc0": 10e-9,
+        "render": 10e-9, "render.bin": 10e-9})
 
 
 def test_a_launch_without_a_runtime_record_is_unattributed():
     events = [e for e in EVENTS if e.correlation_id() != 2
               or e.device_type().endswith("CUDA")]
-    inner, _ = program_trace.launches_by_span(program_trace.launches(events),
-                                              SNAP["spans"])
+    inner, _ = program_trace.launches_by_span(
+        [t for t, _ in program_trace.kernels(events)], SNAP["spans"])
     assert inner["unattributed"] == 1
 
 
@@ -121,41 +128,72 @@ def test_per_root_groups_by_request():
     assert counts == [{"refine.rows.enc0": 8}, {"refine.rows.enc0": 9}]
 
 
-@pytest.mark.parametrize("workload,want", [
-    ("serve_tome", ("render.project", "render.bin", "render", "refine",
-                    "attention.merge", "attention.unmerge", "mlp.merge",
-                    "mlp.unmerge")),
-    ("train_flash", ("backward", "loss.lpips", "optimizer", "refine",
-                     "render"))])
-def test_a_tiny_traced_run_records_what_the_readers_read(workload, want):
-    """The program's tracer on through a traced harness run on the CPU:
-    every request or step holds each span the span metrics read and the
-    counters of every stage."""
+def traced_run(workload):
+    """A tiny traced run of ``workload`` on the CPU, as harness.run drives
+    it: the runner's measures, its checks and the run record the readers
+    get."""
     cell = tiny_cell(workload)
     n = torch.get_num_threads()
     torch.set_num_threads(4)
-    tracing.enable("cpu")
-    tracing.clear()
     try:
-        out = harness.run(cell, [], 2 ** 31 + 77, 0.5, True, "cpu",
-                          time.perf_counter())
-        snap = tracing.snapshot()
+        kind = cell["traffic"]["kind"]
+        d = {"serve": Serve, "train": Train}[kind](cell, 2 ** 31 + 77, "cpu",
+                                                   True)
+        d.setup()
+        d.window(0.5)
+        measured = d.measured()
+        d.free()
+        checks = compare.verdict(d.numbers(), cell["limits"])
     finally:
-        tracing.disable()
-        tracing.clear()
         torch.set_num_threads(n)
-    assert out["correct"], out["checks"]
-    # the requests or steps; set-up's renders of the ground truth are
-    # roots of their own
-    ids = {s["id"] for s in snap["spans"] if s["parent"] is None
-           and s["name"] in ("eval_step", "train_step")}
-    ms, counts = program_trace.per_root({
-        "spans": [s for s in snap["spans"] if s["id"] in ids],
-        "counters": [c for c in snap["counters"] if c["id"] in ids]})
-    assert len(ms) >= out["attempted"]
+    assert not tracing.enabled()
+    rec = SimpleNamespace(setup_s=1.0, peak_bytes=0, cell=cell, **measured)
+    return cell, measured, checks, rec
+
+
+@pytest.mark.parametrize("workload,want", [
+    ("serve_tome", ("render.project", "render.bin", "render", "refine",
+                    "refine.serialize", "attention.merge",
+                    "attention.unmerge", "mlp.merge", "mlp.unmerge")),
+    ("train_flash", ("backward", "loss.lpips", "optimizer", "refine",
+                     "refine.serialize", "render"))])
+def test_a_tiny_traced_run_records_what_the_readers_read(workload, want):
+    """The program's tracer, turned on by a traced run: every request or
+    step of the traced part holds each span the span metrics read and the
+    counters of every stage (the ``refine.*`` counters: the render counts
+    the views it projected besides)."""
+    cell, measured, checks, _ = traced_run(workload)
+    assert compare.passed(checks), checks
+    ms, counts = measured["program_spans_ms"], measured["program_counters"]
+    assert len(ms) == measured["traced_done"] > 0
     stages = len(cell["config"]["model"]["backbone"]["enc_depths"]) * 2 - 1
     for m, c in zip(ms, counts):
         assert all(m.get(name, 0) > 0 for name in want), m
-        assert len(c) == 3 * stages
+        assert len([k for k in c if k.startswith("refine.")]) == 3 * stages
         assert all(c[f"refine.points.{s}"] <= c[f"refine.rows.{s}"]
                    for s in ("enc0", "dec0"))
+    assert isinstance(measured["trace"]["device_within"], dict)
+
+
+@pytest.mark.parametrize("workload,metric,span", [
+    ("serve_flash", "serialize_ms.serve", "refine.serialize"),
+    ("serve_render", "serialize_ms.render", "refine.serialize"),
+    ("train_flash", "backward_ms.train", "backward"),
+    ("train_flash_f32", "backward_ms.train_f32", "backward")])
+def test_the_program_span_metrics_read_a_tiny_traced_run(workload, metric,
+                                                         span):
+    """The metrics that read the program's spans give the mean a request or
+    step of the traced part, and the helpers read its counters; an
+    untraced run's record gives none of them."""
+    _, measured, _, rec = traced_run(workload)
+    names = [m["name"] for m in harness.metrics_for(
+        harness.load_benchmark(), workload, True)]
+    assert metric in names
+    v = harness.reader(metric)(rec)
+    ms = measured["program_spans_ms"]
+    assert v == pytest.approx(sum(m[span] for m in ms) / len(ms)) and v > 0
+    assert readers.program_counter(rec, "refine.rows.enc0") == 2048
+    assert readers.program_span_ms(rec, "no.such.span") is None
+    untraced = SimpleNamespace(kind=rec.kind, cell=rec.cell)
+    assert harness.reader(metric)(untraced) is None
+    assert readers.device_within_s(untraced, span) is None
