@@ -10,10 +10,12 @@ cell's own load, then print one JSON line with the compared numbers of the
 program against the reference (the lower reading) and of the control (the
 reference in the precision below the configuration's, in the program's
 place) against the reference (the upper reading); with ``--faults``, the
-numbers of runs with a fault of lib/faults.py planted. Serving cells take TF32
-products and bfloat16 render entries as the control; training cells the
-precision below the recipe's blocks: float8 (e4m3, scaled) products inside
-bfloat16 blocks, or bfloat16 blocks where the recipe keeps them float32."""
+numbers of runs with a fault of lib/faults.py planted (those of the cell's
+kind and, where the configuration downsamples its input, those of the
+downsampling's stage). Serving cells take TF32 products and bfloat16
+render entries as the control; training cells the precision below the
+recipe's blocks: float8 (e4m3, scaled) products inside bfloat16 blocks, or
+bfloat16 blocks where the recipe keeps them float32."""
 import argparse
 import json
 import sys
@@ -37,10 +39,9 @@ def control_mode(cell) -> str:
 
 def planted(cell, seed: int, seconds: float, device, name: str) -> dict:
     """The compared numbers of a run with one fault of lib/faults.py."""
-    from perfbench.lib.faults import FAULTS
-    kind = cell["traffic"]["kind"]
+    from perfbench.lib.faults import faults_for
     d = runner(cell, seed, device)
-    d.plant = FAULTS[kind][name]
+    d.plant = faults_for(cell)[name]
     d.setup()
     d.window(seconds)
     d.free()
@@ -85,7 +86,7 @@ def main(argv) -> int:
     p.add_argument("--seconds", type=float, default=3.0)
     p.add_argument("--faults", nargs="*", default=None,
                    help="instead of the control, plant these faults of "
-                   "lib/faults.py (all of the cell's kind if none named)")
+                   "lib/faults.py (all the cell can have if none named)")
     args = p.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -97,8 +98,8 @@ def main(argv) -> int:
             print(json.dumps(readings(cell, seed, args.seconds, "cuda")),
                   flush=True)
             continue
-        from perfbench.lib.faults import FAULTS
-        for name in args.faults or FAULTS[cell["traffic"]["kind"]]:
+        from perfbench.lib.faults import faults_for
+        for name in args.faults or faults_for(cell):
             print(json.dumps(planted(cell, seed, args.seconds, "cuda",
                                      name)), flush=True)
             torch.cuda.empty_cache()

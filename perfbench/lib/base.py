@@ -115,14 +115,16 @@ class Runner:
     def traced_measures(self) -> Dict:
         """The trace's reduction with the program's spans beside the
         harness's, the harness's spans and stage counts, and the program's
-        spans and counters by request or step."""
+        spans (summed and their own time) and counters by request or
+        step."""
         snap = self.program_snap
         ms, counts = program_trace.per_root(snap)
         return {"trace": program_trace.reduce(
                     self.stopped, tuple(self.trace_ns), self.traced_spans,
                     snap),
                 "spans_ms": self.spans.ms(), "stage_counts": self.stages(),
-                "program_spans_ms": ms, "program_counters": counts}
+                "program_spans_ms": ms, "program_counters": counts,
+                "program_self_ms": program_trace.self_ms(snap)}
 
     def stages(self) -> List[Dict]:
         """Per forward of the traced part: live points of each stage, the

@@ -55,6 +55,29 @@ def image_numbers(got: Dict, want: Dict) -> Dict[str, float]:
             "ssim_gap": _max(got["ssim"].to(dev) - want["ssim"])}
 
 
+def reduced_numbers(got, want) -> Dict[str, float]:
+    """Input downsampling's reduced set, the program's ``got`` against the
+    reference's ``want`` (coord, feat, mask, index: reference/downsample.py
+    :reduce). ``assign_mismatch``: the points whose cluster differs (for
+    random keep, the kept indices that differ) plus the reduced rows whose
+    liveness differs; ``reduced_gap``: over the rows live in both, the
+    largest gap of a coordinate, as a share of the reference's extent (its
+    widest axis), or of a feature, as a share of that feature's range."""
+    gc, gf, gm, gi = got
+    wc, wf, wm, wi = want
+    mismatch = int((gi != wi).sum()) + int((gm != wm).sum())
+    live = gm & wm
+    if not bool(live.any()):
+        return {"assign_mismatch": float(mismatch), "reduced_gap": 0.0}
+    w = wc[wm]
+    extent = float((w.max(0).values - w.min(0).values).max())
+    gap = _max(gc[live] - wc[live]) / max(extent, 1e-30)
+    f = wf[wm]
+    span = torch.clamp(f.max(0).values - f.min(0).values, min=1e-30)
+    gap = max(gap, _max((gf[live] - wf[live]) / span))
+    return {"assign_mismatch": float(mismatch), "reduced_gap": gap}
+
+
 def _norms(tensors: Dict[str, torch.Tensor]) -> Dict[str, float]:
     return {k: float(torch.linalg.vector_norm(v.double())) for k, v in
             tensors.items()}

@@ -1,12 +1,14 @@
 """Everything the harness takes from the program, splatformer_tpu_torch:
 its model, its eval and train steps, its optimizer and LPIPS modules, its
 render (for the ground truth and the raster calibration), its launch
-counters and its tracer (its own spans and counters, read in traced runs).
-No other harness file imports the program."""
+counters, its tracer (its own spans and counters, read in traced runs) and
+the reduced sets its input downsampling makes (which the comparison checks
+and then follows, stage by stage). No other harness file imports the
+program."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, Optional
 
 import torch
 
@@ -17,6 +19,7 @@ from splatformer_tpu_torch.kernels import LAUNCHES
 from splatformer_tpu_torch.models import ptv3 as ptv3_module
 from splatformer_tpu_torch.models.feature_predictor import FeaturePredictor
 from splatformer_tpu_torch.models.lpips import LPIPS
+from splatformer_tpu_torch.ops import downsample as downsample_module
 from splatformer_tpu_torch.ops.calibrate import calibrate_raster_config
 from splatformer_tpu_torch.ops.render import render_images_stats
 from splatformer_tpu_torch.ops.types import (Camera, GaussianScene,
@@ -28,8 +31,9 @@ from splatformer_tpu_torch.training.train_step import (SceneBatch,
                                                        make_train_step)
 
 __all__ = ["LAUNCHES", "LPIPS", "SceneBatch", "build_model", "build_optimizer",
-           "calibrate", "camera", "make_eval_step", "make_train_step",
-           "ptv3_module", "render", "scene", "tracing", "train_step_module"]
+           "calibrate", "camera", "downsample_module", "make_eval_step",
+           "make_train_step", "ptv3_module", "record_downsampling", "render",
+           "scene", "tracing", "train_step_module"]
 
 
 def model_config(model: Dict[str, Any]) -> ModelConfig:
@@ -92,3 +96,31 @@ def calibrate(samples, how: str) -> RasterizeConfig:
     if how != "calibrate":
         raise ValueError(f"raster {how!r}")
     return calibrate_raster_config([(scene(s), camera(c)) for s, c in samples])
+
+
+# ops/downsample.py's three methods, each returning (coord, feat, mask,
+# index): the cluster row of each point (fps, voxel) or the kept indices
+# (random); its downsample_dispatch looks them up by name at each call
+_REDUCERS = ("fps_knn_downsample", "voxel_downsample", "random_downsample")
+
+
+def record_downsampling(sink: Callable[[tuple], None]) -> Callable[[], None]:
+    """Hand every reduced set the program's input downsampling makes to
+    ``sink`` (the tensors themselves: nothing is copied or computed), and
+    return what undoes it."""
+    mod = downsample_module
+    kept = {name: getattr(mod, name) for name in _REDUCERS}
+
+    def recorder(fn):
+        def recorded(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            sink(out)
+            return out
+        return recorded
+    for name, fn in kept.items():
+        setattr(mod, name, recorder(fn))
+
+    def undo() -> None:
+        for name, fn in kept.items():
+            setattr(mod, name, fn)
+    return undo

@@ -188,3 +188,22 @@ def per_root(snap: Dict) -> Tuple[List[Dict[str, float]],
         if c["id"] in counts:
             counts[c["id"]][c["name"]] = c["value"]
     return [dict(ms[i]) for i in order], [counts[i] for i in order]
+
+
+def self_ms(snap: Dict) -> List[Dict[str, float]]:
+    """For each request or step (as ``per_root``), {span name: summed ms
+    of the span less the ms of the spans directly beneath it}: its own
+    time."""
+    spans = snap["spans"]
+    own = [s["ms"] for s in spans]
+    for s in spans:
+        if s["parent"] is not None:
+            own[s["parent"]] -= s["ms"]
+    order: List[int] = []
+    out: Dict[int, Dict[str, float]] = {}
+    for s, ms in zip(spans, own):
+        if s["id"] not in out:
+            order.append(s["id"])
+            out[s["id"]] = defaultdict(float)
+        out[s["id"]][s["name"]] += ms
+    return [dict(out[i]) for i in order]

@@ -1,12 +1,13 @@
 """Arithmetic the metric readers share: the traced forwards' time at the
 peaks (the ``mfu`` metrics), K3's least time (the ``*_roofline`` metrics),
-device time by kernel name, and the program's own spans and counters of
-the traced part (``program_span_ms``, ``program_counter``,
-``device_within_s``)."""
+device time by kernel name, the program's own spans and counters of the
+traced part (``program_span_ms``, ``program_counter``,
+``device_within_s``), and input downsampling's time and least time
+(``downsample_ms``, ``downsample_bound_s``)."""
 from __future__ import annotations
 
 import statistics
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 from perfbench.lib import counters
 from perfbench.reference.steps import backbone_kwargs, head_channels
@@ -62,14 +63,23 @@ def forward_peak_s(run, rec: Dict) -> float:
     return 3 * s + lp / counters.PEAK_F32
 
 
-def mfu(run) -> Optional[float]:
+def mfu(run, downsampling: bool = False) -> Optional[float]:
     """% of the peak: the traced forwards' mean time at the peaks over the
     median time of the window's requests or steps (the median, since the
-    profiled ones among them run slower)."""
+    profiled ones among them run slower). With ``downsampling``, FPS's and
+    the nearest search's FP32 operations (``fps_picks``) at the FP32 peak
+    besides."""
     if (not getattr(run, "stage_counts", None) or not run.done
             or run.trace["busy_s"] <= 0):
         return None
     at_peak = [forward_peak_s(run, rec) for rec in run.stage_counts]
+    if downsampling:
+        picks = fps_picks(run)
+        if not picks:
+            return None
+        at_peak = [s + (counters.fps_work(n, m)[0]
+                        + counters.nearest_work(n, m)[0]) / counters.PEAK_F32
+                   for s, (n, m) in zip(at_peak, picks)]
     times = run.latencies_s if run.kind == "serve" else run.step_s
     return 100.0 * (sum(at_peak) / len(at_peak)) / statistics.median(times)
 
@@ -142,3 +152,42 @@ def device_within_s(run, name: str) -> Optional[float]:
     s = (t.get("device_within") or {}).get(name)
     roots = _roots(run, "program_spans_ms")
     return s / len(roots) if s and roots else None
+
+
+def fps_picks(run) -> List[Tuple[float, int]]:
+    """(live points, centroids) of each traced forward of an FPS
+    configuration (reference/downsample.py:fps_knn_downsample: int(slots x
+    ratio) picks, at most the live points), or [] for any other."""
+    info = _model(run)["additional_info"]
+    if info.get("downsample") != "fps" or not getattr(run, "stage_counts",
+                                                       None):
+        return []
+    m = max(1, int(run.cell["config"]["scene"]["pad_to"]
+                   * float(info["downsample_ratio"])))
+    return [(rec["live"], min(m, int(rec["live"])))
+            for rec in run.stage_counts]
+
+
+def downsample_bound_s(run) -> Optional[float]:
+    """The mean least time a traced request of FPS and the nearest search
+    (``fps_bound_s`` + ``nearest_bound_s``), or None without FPS."""
+    picks = fps_picks(run)
+    if not picks:
+        return None
+    return sum(counters.fps_bound_s(n, m) + counters.nearest_bound_s(n, m)
+               for n, m in picks) / len(picks)
+
+
+def downsample_ms(run) -> Optional[float]:
+    """Input downsampling's mean ms a request or step of the traced part:
+    the program's ``refine.downsample`` span where it has one, else the
+    ``refine`` span's own time, or None without downsampling."""
+    if not _model(run)["additional_info"].get("downsample"):
+        return None
+    ms = program_span_ms(run, "refine.downsample")
+    if ms is not None:
+        return ms
+    roots = _roots(run, "program_self_ms")
+    if not any("refine" in r for r in roots):
+        return None
+    return sum(r.get("refine", 0.0) for r in roots) / len(roots)

@@ -2,7 +2,16 @@
 eval step (training/train_step.py:make_eval_step) on one pool scene, from
 its issue until its rendered views, alpha and per-view PSNR and SSIM are
 in host memory; the next request is issued when the previous one's
-outputs are there."""
+outputs are there.
+
+With input downsampling the refine is compared in two stages, since the
+backbone's grid is a floor of the reduced set's coordinates: the cluster
+means, summed by atomic adds on the card, differ from run to run in the
+last bit, and where one such bit crosses a grid cell's edge the patches
+change and no tolerance can compare the refines. So the reduced set that
+the program's own call made is compared with the reference's first, then
+the reference runs its backbone, heads and map back on the program's
+reduced set."""
 from __future__ import annotations
 
 import random
@@ -23,6 +32,11 @@ class Serve(Runner):
         self.make_pool()
         self.step = program.make_eval_step(self.model, self.rcfg)
         self.model.register_forward_hook(self._keep_refined)
+        self.last_reduced = None
+        self.staged = bool(self.cfg["model"]["additional_info"].get(
+            "downsample"))
+        self.undo_recording = (program.record_downsampling(
+            self._keep_reduced) if self.staged else None)
         if self.traced:
             self.install_tracing()
         if self.plant is not None:
@@ -34,6 +48,9 @@ class Serve(Runner):
 
     def _keep_refined(self, module, args, out) -> None:
         self.last_refined = out
+
+    def _keep_reduced(self, out) -> None:
+        self.last_reduced = out
 
     def request(self, i: int):
         pi = int(self.order[i % len(self.order)])
@@ -75,7 +92,8 @@ class Serve(Runner):
             self.failed += int(not ok)
             self.dropped += host["dropped"]
             if slot < k:
-                self.kept[slot] = (i, pi, host, self.last_refined)
+                self.kept[slot] = (i, pi, host, self.last_refined,
+                                   self.last_reduced)
             i += 1
             if i == traced_n:
                 self.traced_done = i
@@ -98,9 +116,12 @@ class Serve(Runner):
     def free(self) -> None:
         """Drop the program's state before the reference runs."""
         self.kept = [(i, pi, host, {k: getattr(r, k) for k in
-                                    compare.SCENE_ATTRS})
-                     for i, pi, host, r in self.kept]
+                                    compare.SCENE_ATTRS}, reduced)
+                     for i, pi, host, r, reduced in self.kept]
         del self.model, self.step, self.batches, self.last_refined
+        self.last_reduced = None
+        if self.undo_recording is not None:
+            self.undo_recording()
         if self.device.type == "cuda":
             torch.cuda.empty_cache()
 
@@ -108,28 +129,37 @@ class Serve(Runner):
         """The compared numbers over the kept requests, stage by stage: the
         program's refined scene against the reference's refine of the same
         input, and the program's images and scores against the reference's
-        render and scoring of the program's refined scene. With ``lower``
-        the reference in the lower precision (TF32 products, bfloat16
-        entries) takes the program's place: the control."""
+        render and scoring of the program's refined scene. With input
+        downsampling, the program's reduced set against the reference's
+        (``assign_mismatch``, ``reduced_gap``), and the refine against the
+        reference's on the program's reduced set. With ``lower`` the
+        reference in the lower precision (TF32 products, bfloat16 entries)
+        takes the program's place: the control."""
         ref = reference.build_model(self.cfg["model"], self.device)
         weights.load(ref, self.model_state(ref))
         worst: Dict[str, float] = {}
-        for i, pi, host, refined in self.kept:
+        for i, pi, host, refined, reduced in self.kept:
             p = self.pool[pi]
-            want_refined = reference.refine(ref, p["noisy"])
+            found = {}
             if lower:
-                refined = reference.refine(ref, p["noisy"], lower)
+                reduced = (reference.reduce(ref, p["noisy"], lower)
+                           if self.staged else None)
+                refined = reference.refine(ref, p["noisy"], lower, reduced)
                 host = reference.render_and_score(
                     refined, p["noisy"]["mask"], p["clean"], self.cams,
                     self.bgs[pi], lower)
+            if self.staged:
+                found = compare.reduced_numbers(
+                    reduced, reference.reduce(ref, p["noisy"]))
+            want_refined = reference.refine(ref, p["noisy"], reduced=reduced)
             want = reference.render_and_score(
                 refined, p["noisy"]["mask"], p["clean"], self.cams,
                 self.bgs[pi])
-            found = compare.image_numbers(host, want)
+            found.update(compare.image_numbers(host, want))
             found["refine_gap"] = compare.refine_gap(refined, want_refined,
                                                      p["noisy"])
             for name, v in found.items():
                 worst[name] = max(worst.get(name, 0.0), v)
-            del want_refined, want, found
+            del want_refined, want, found, reduced
         worst["dropped"] = float(self.dropped)
         return worst

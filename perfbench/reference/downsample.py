@@ -166,33 +166,44 @@ def backbone_rows(info: Dict[str, Any], n: int) -> int:
     raise NotImplementedError(method)
 
 
+def reduce(method: str, info: Dict[str, Any], coord, feat, mask,
+           uniform: Optional[Uniform] = None
+           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """-> (coord, feat, mask, index): the reduced set of ``method`` and, for
+    voxel and fps, each point's cluster row (M for masked points), for random
+    the kept points' indices. ``uniform`` draws random's scores; without it
+    they come from a CPU generator seeded 0."""
+    if method == "voxel":
+        return voxel_downsample(
+            coord, feat, mask, float(info["voxel_size"]),
+            capacity_factor=float(info.get("voxel_capacity_factor", 0.5)))
+    if method == "fps":
+        return fps_knn_downsample(coord, feat, mask,
+                                  float(info["downsample_ratio"]))
+    if method == "random":
+        n = coord.shape[0]
+        scores = (uniform((n,)) if uniform is not None else torch.rand(
+            n, generator=torch.Generator().manual_seed(0)))
+        return random_downsample(coord, feat, mask,
+                                 float(info["downsample_ratio"]), scores)
+    raise NotImplementedError(method)
+
+
 def downsample_dispatch(method: str, info: Dict[str, Any], coord, feat, mask,
-                        uniform: Optional[Uniform] = None
+                        uniform: Optional[Uniform] = None,
+                        reduced: Optional[Sequence[torch.Tensor]] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                                    UpFn]:
     """-> (coord, feat, mask, up): the reduced set, and ``up`` mapping the
     backbone's outputs on it back to the original points (voxel and fps:
     each point's cluster row, zero for masked points; random: the nearest
-    kept point's row). ``uniform`` draws random's scores; without it they
-    come from a CPU generator seeded 0."""
-    if method == "voxel":
-        vc, vf, vm, assign = voxel_downsample(
-            coord, feat, mask, float(info["voxel_size"]),
-            capacity_factor=float(info.get("voxel_capacity_factor", 0.5)))
-        return vc, vf, vm, _gather_up(assign, vc.shape[0])
-    if method == "fps":
-        fc, ff, fm, assign = fps_knn_downsample(
-            coord, feat, mask, float(info["downsample_ratio"]))
-        return fc, ff, fm, _gather_up(assign, fc.shape[0])
+    kept point's row). ``reduced``, a result of ``reduce`` made elsewhere
+    (the program's, where the comparison follows it stage by stage), takes
+    the place of this one's own."""
+    rc, rf, rm, index = (reduced if reduced is not None else
+                         reduce(method, info, coord, feat, mask, uniform))
     if method == "random":
-        n = coord.shape[0]
-        scores = (uniform((n,)) if uniform is not None else torch.rand(
-            n, generator=torch.Generator().manual_seed(0)))
-        rc, rf, rm, _ = random_downsample(
-            coord, feat, mask, float(info["downsample_ratio"]), scores)
-
         def up(y: torch.Tensor) -> torch.Tensor:
             return y.index_select(0, nearest_idx(coord, rc, rm))
-
         return rc, rf, rm, up
-    raise NotImplementedError(method)
+    return rc, rf, rm, _gather_up(index, rc.shape[0])

@@ -15,7 +15,9 @@ With ``additional_info["downsample"]`` (fps, voxel, random) the backbone
 runs on the reduced set of downsample.py and its outputs are mapped back to
 every point before the heads, which see the full-resolution input
 features; training draws random keep's scores from the caller's generator
-before the order shuffle, evaluation from a CPU generator seeded 0."""
+before the order shuffle, evaluation from a CPU generator seeded 0.
+``reduce`` gives the reduced set alone, and ``forward``'s ``reduced`` runs
+the backbone on one made elsewhere in place of its own."""
 from __future__ import annotations
 
 import math
@@ -25,7 +27,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from perfbench.reference.downsample import downsample_dispatch
+from perfbench.reference.downsample import downsample_dispatch, reduce
 from perfbench.reference.point import make_point_batch
 from perfbench.reference.ptv3 import PointTransformerV3
 from perfbench.reference import merging
@@ -104,21 +106,36 @@ class FeaturePredictor(nn.Module):
             self.add_module(f"head_{f}", OutputHead(
                 head_in, ch[f], output_head_nlayer, output_head_width))
 
+    def _input(self, scene: GaussianScene):
+        """(mask, the input features of the live points, zero elsewhere)."""
+        mask = scene.valid_mask()
+        n = scene.num_points
+        feat = torch.cat([getattr(scene, k).reshape(n, -1)
+                          for k in self.input_features], dim=1)
+        return mask, torch.where(mask[:, None], feat, torch.zeros_like(feat))
+
+    def reduce(self, scene: GaussianScene):
+        """downsample.py:reduce of the scene in evaluation: (coord, feat,
+        mask, index) of the reduced set the backbone would run on."""
+        mask, feat = self._input(scene)
+        info = self.additional_info
+        return reduce(info["downsample"], info, scene.means, feat, mask)
+
     def forward(self, scene: GaussianScene,
                 generator: Optional[torch.Generator] = None,
                 order_perm: Optional[torch.Tensor] = None,
-                merge_scores: Optional[Iterable[torch.Tensor]] = None
+                merge_scores: Optional[Iterable[torch.Tensor]] = None,
+                reduced: Optional[Sequence[torch.Tensor]] = None
                 ) -> GaussianScene:
         """Refine ``scene``. In training, ``order_perm`` (a permutation of
         the 4 orders) fixes PTv3's order shuffle, else it is drawn from
         ``generator``, which DropPath also draws from, as do random_patch
-        merging's block scores unless ``merge_scores`` gives them."""
-        mask = scene.valid_mask()
+        merging's block scores unless ``merge_scores`` gives them. With
+        input downsampling, ``reduced`` (a ``reduce`` result) takes the
+        place of the reduced set this call would make."""
+        mask, feat = self._input(scene)
         n = scene.num_points
         dev = mask.device
-        feat = torch.cat([getattr(scene, k).reshape(n, -1)
-                          for k in self.input_features], dim=1)
-        feat = torch.where(mask[:, None], feat, torch.zeros_like(feat))
 
         gdev = generator.device if generator is not None else None
 
@@ -131,7 +148,7 @@ class FeaturePredictor(nn.Module):
         if info.get("downsample"):
             coord, feat, mask_ds, up = downsample_dispatch(
                 info["downsample"], info, coord, feat, mask,
-                draw if self.training else None)
+                draw if self.training else None, reduced)
 
         perm = None
         if self.training:

@@ -6,7 +6,7 @@ budgets, its own optimizer state."""
 from __future__ import annotations
 
 import contextlib
-from typing import Any, Dict, Iterator, List, Optional
+from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -108,13 +108,25 @@ def raster_config(scenes: List[GaussianScene], cams: Camera):
 
 
 @torch.no_grad()
+def reduce(model: FeaturePredictor, noisy: Dict,
+           lower: Optional[str] = None) -> Tuple[torch.Tensor, ...]:
+    """The reduced set that input downsampling makes of the scene (coord,
+    feat, mask, index: downsample.py:reduce); ``lower`` as ``refine``."""
+    with full_float32(), precision.lower(lower, noisy["means"].device):
+        return model.reduce(scene(noisy))
+
+
+@torch.no_grad()
 def refine(model: FeaturePredictor, noisy: Dict,
-           lower: Optional[str] = None) -> Dict[str, torch.Tensor]:
+           lower: Optional[str] = None,
+           reduced: Optional[Sequence[torch.Tensor]] = None
+           ) -> Dict[str, torch.Tensor]:
     """The refined scene's attributes, as the eval step's refine computes
     them; ``lower`` computes the products in TF32 or float8 (the
-    control)."""
+    control). With input downsampling, ``reduced`` (a ``reduce`` result,
+    or the program's own reduced set) is the set the backbone runs on."""
     with full_float32(), precision.lower(lower, noisy["means"].device):
-        refined = model(scene(noisy))
+        refined = model(scene(noisy), reduced=reduced)
     return {k: getattr(refined, k) for k in SCENE_ATTRS}
 
 

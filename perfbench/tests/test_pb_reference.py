@@ -12,7 +12,7 @@ import torch
 
 from perfbench import control
 from perfbench.lib import compare, harness
-from perfbench.lib.faults import FAULTS
+from perfbench.lib.faults import faults_for
 from perfbench.tests.tiny import tiny_cell
 
 SEED = 2 ** 31 + 12345  # more than 32 signed bits hold
@@ -34,7 +34,8 @@ def run(workload, plant=None):
 
 
 @pytest.mark.parametrize("workload", ["serve_flash", "serve_tome",
-                                      "train_flash", "train_flash_f32"])
+                                      "serve_fps", "train_flash",
+                                      "train_flash_f32"])
 def test_a_sound_run_is_correct(workload):
     out = run(workload)
     assert out["correct"], out["checks"]
@@ -44,16 +45,17 @@ def test_a_sound_run_is_correct(workload):
 
 
 @pytest.mark.parametrize("workload,fault", [
-    (w, f) for w in ("serve_flash", "train_flash", "train_flash_f32")
-    for f in FAULTS[tiny_cell(w)["traffic"]["kind"]]])
+    (w, f) for w in ("serve_flash", "serve_fps", "train_flash",
+                     "train_flash_f32")
+    for f in faults_for(tiny_cell(w))])
 def test_a_planted_fault_is_not_correct(workload, fault):
-    kind = tiny_cell(workload)["traffic"]["kind"]
-    out = run(workload, FAULTS[kind][fault])
+    out = run(workload, faults_for(tiny_cell(workload))[fault])
     assert not out["correct"], out["checks"]
 
 
 @pytest.mark.parametrize("workload,mode,fails", [
-    ("serve_flash", "tf32", ()), ("train_flash", "fp8", ()),
+    ("serve_flash", "tf32", ()), ("serve_fps", "tf32", ("refine_gap",)),
+    ("train_flash", "fp8", ()),
     ("train_flash_f32", "bf16", ("refine1_rms_gap", "grad_gap"))])
 def test_the_control_is_not_correct(workload, mode, fails):
     """The reference in TF32 (serving), float8 products in bfloat16 blocks

@@ -4,12 +4,14 @@ a tiny traced run on the CPU grouped by request or step, as the runners
 (lib/base.py) take them and the metric readers read them."""
 from __future__ import annotations
 
+import statistics
 from types import SimpleNamespace
 
 import pytest
 import torch
 
-from perfbench.lib import compare, harness, program_trace, readers, trace
+from perfbench.lib import (compare, counters, harness, program_trace,
+                           readers, trace)
 from perfbench.lib.serve import Serve
 from perfbench.lib.train import Train
 from perfbench.tests.tiny import tiny_cell
@@ -197,3 +199,65 @@ def test_the_program_span_metrics_read_a_tiny_traced_run(workload, metric,
     untraced = SimpleNamespace(kind=rec.kind, cell=rec.cell)
     assert harness.reader(metric)(untraced) is None
     assert readers.device_within_s(untraced, span) is None
+
+
+def test_self_ms_leaves_out_the_spans_directly_beneath():
+    assert program_trace.self_ms(SNAP) == [pytest.approx({
+        "eval_step": 1e-5, "refine": 2e-5, "refine.enc0": 1e-5,
+        "render": 4e-5, "render.bin": 1e-5})]
+
+
+def test_the_downsampling_metrics_read_a_tiny_traced_run():
+    """serve_fps's per-layer metrics: ``downsample_ms.fps`` reads the
+    ``refine`` span's own time (or a ``refine.downsample`` span where the
+    program has one), ``fps_roofline.fps`` FPS's and the nearest search's
+    least time at each request's live points and picks over it, and
+    ``mfu.fps`` adds their FP32 operations to the forward's FLOPs."""
+    cell, measured, checks, rec = traced_run("serve_fps")
+    assert compare.passed(checks), checks
+    own = [r["refine"] for r in measured["program_self_ms"]]
+    assert len(own) == measured["traced_done"] > 0
+    ms = harness.reader("downsample_ms.fps")(rec)
+    assert ms == pytest.approx(sum(own) / len(own)) and ms > 0
+    m = int(cell["config"]["scene"]["pad_to"] * 0.35)
+    lives = [r["live"] for r in rec.stage_counts]
+    bound = sum(counters.fps_bound_s(n, m) + counters.nearest_bound_s(n, m)
+                for n in lives) / len(lives)
+    assert readers.downsample_bound_s(rec) == pytest.approx(bound)
+    roof = harness.reader("fps_roofline.fps")(rec)
+    assert roof == pytest.approx(100 * bound / (ms * 1e-3)) and 0 < roof < 100
+    spanned = SimpleNamespace(**vars(rec))
+    spanned.program_spans_ms = [dict(r, **{"refine.downsample": 5.0})
+                                for r in rec.program_spans_ms]
+    assert harness.reader("downsample_ms.fps")(spanned) == 5.0
+    # the CPU trace has no device time: give it some to read mfu
+    busy = SimpleNamespace(**vars(rec))
+    busy.trace = dict(rec.trace, busy_s=1.0)
+    ops = sum(counters.fps_work(n, m)[0] + counters.nearest_work(n, m)[0]
+              for n in lives) / len(lives)
+    gain = 100 * ops / counters.PEAK_F32 / statistics.median(rec.latencies_s)
+    assert harness.reader("mfu.fps")(busy) == pytest.approx(
+        readers.mfu(busy) + gain)
+    _, _, _, flash = traced_run("serve_flash")
+    assert readers.downsample_ms(flash) is None
+    assert readers.downsample_bound_s(flash) is None
+
+
+def test_the_fps_request_metrics_leave_out_the_traced_requests():
+    """``request_rate.fps`` and ``request_p95_ms.fps`` read only the
+    requests a traced run serves after its traced part; an untraced run,
+    or one whose window closed inside the traced part, gives neither."""
+    run = SimpleNamespace(kind="serve", trace={"busy_s": 1.0},
+                          latencies_s=[4.0, 4.2, 2.0, 2.5, 3.0],
+                          traced_done=2)
+    rate = harness.reader("request_rate.fps")
+    p95 = harness.reader("request_p95_ms.fps")
+    assert rate(run) == pytest.approx(3 / 7.5)
+    assert p95(run) == pytest.approx(2950.0)
+    assert {"request_rate.fps", "request_p95_ms.fps"} <= {
+        m["name"] for m in harness.metrics_for(harness.load_benchmark(),
+                                               "serve_fps", True)}
+    inside = SimpleNamespace(**dict(vars(run), traced_done=5))
+    untraced = SimpleNamespace(kind="serve", latencies_s=run.latencies_s)
+    for r in (inside, untraced):
+        assert rate(r) is None and p95(r) is None
