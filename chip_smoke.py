@@ -40,6 +40,15 @@ Phases, each printing one JSON line:
             the host, the plain version's forward and backward, and the
             byte bound of each (each input byte read once, each output
             byte written once); one launch each;
+  fps       the FPS kernel F1 (kernels/fps.py): the association of
+            PyTorch's CUDA sum of 3 (16M random rows against the three:
+            csrc/fps.cu's must match every row); its picks against the
+            plain loop's on the card bit for bit at 100,352 slots and ratio
+            0.35 (100k and 50k live points, two scenes each, and a coarse
+            grid with duplicates); fps_knn_downsample launching it once and
+            never the plain loop; its time (CUDA events), the plain loop's,
+            its bound (10 n m FP32 operations) and each template's
+            registers and spills (cuobjdump);
   k3        the patch-attention forward K3-fwd against its plain version
             at each (B, H, d) class of PTv3-base's flash path (patch 1024),
             float32 (split-TF32 tensor-core kernel) and bfloat16
@@ -80,7 +89,8 @@ Phases, each printing one JSON line:
             request and K3 never; every merge leaves the tokens a patch that
             the JAX package's counts give (expected_tokens; ALGM keeps K'
             = K and reports its live tokens), each downsampling its live
-            points; for fps the FPS loop's ms alone;
+            points; for fps FPS's ms alone (the F1 kernel) and one F1
+            launch a request;
   serving_merge_flash  ptv3_tome with enable_flash and tome_attention off:
             the attention stays on K3 (22 launches a request), tome_mlp
             merges the MLP's tokens;
@@ -344,16 +354,19 @@ def kernel_ms(fn, name, reps=10):
     return us / reps / 1e3
 
 
-def with_projection(launches, renders=None, backwards=None):
+def with_projection(launches, renders=None, backwards=None, fps=0):
     """``launches`` with the fused projection's (P1) counts: one forward a
     K1 launch and one backward a K2 launch, as every render through
     ops/render.py makes them, unless ``renders`` and ``backwards`` say
-    otherwise (the Gaussian-sharded render projects in plain PyTorch)."""
+    otherwise (the Gaussian-sharded render projects in plain PyTorch); and
+    ``fps`` FPS kernel (F1) launches, one a forward of an FPS
+    configuration."""
     return {**launches,
             "projection_fwd": (launches["composite_fwd"] if renders is None
                                else renders),
             "projection_bwd": (launches["composite_bwd"] if backwards is None
-                               else backwards)}
+                               else backwards),
+            "fps": fps}
 
 
 def cuda_ms(fn, reps):
@@ -710,6 +723,131 @@ def phase_projection():
             raise AssertionError(f"P1 disagrees with its plain version: "
                                  f"{row}")
     return rows
+
+
+FPS_RATIO = 0.35          # ptv3_fps's ratio: 35,123 picks of 100,352 slots
+FPS_SEEDS = (0, 1)        # scenes a live count in the fps phase
+FPS_ORDERS = ("(a+b)+c", "(a+c)+b", "a+(b+c)")
+FPS_ORDER = "(a+c)+b"     # csrc/fps.cu's association of the 3-term sum
+FPS_KERNEL = re.compile(r"fps_kernelILi(\d+)E")
+
+
+def fps_resources(path):
+    """{points a thread: {"registers", "stack_bytes", "local_bytes"}} of
+    the FPS library's kernels, from cuobjdump -res-usage."""
+    from splatformer_tpu_torch.kernels.build import nvcc_path
+    tool = str(nvcc_path().resolve().with_name("cuobjdump"))
+    usage = subprocess.run([tool, "-res-usage", str(path)], check=True,
+                           capture_output=True, text=True, timeout=300).stdout
+    found, key = {}, None
+    for line in usage.splitlines():
+        m = FPS_KERNEL.search(line) if "Function" in line else None
+        if m:
+            key = int(m.group(1))
+            continue
+        regs = re.search(r"REG:(\d+)", line)
+        if key is not None and regs:
+            found[key] = {"registers": int(regs.group(1)),
+                          **{k: int(re.search(f + r":(\d+)", line).group(1))
+                             for k, f in (("stack_bytes", "STACK"),
+                                          ("local_bytes", "LOCAL"))}}
+            key = None
+    return found
+
+
+def phase_fps():
+    """F1, the FPS kernel (kernels/fps.py): the association PyTorch's CUDA
+    sum of 3 takes (16M random rows of squares spread over 12 decades
+    against the three associations: the kernel's must match every row,
+    the others not); the kernel's picks against the plain loop's on the
+    card, bit for bit, at 100,352 slots and ratio 0.35 with 100k and 50k
+    live points (FPS_SEEDS each) and on a coarse grid with duplicates;
+    fps_knn_downsample launching it once and never the plain loop; its
+    time (CUDA events), the plain loop's, the bound (10 n m FP32
+    operations at the FP32 peak, or its bytes) and each kernel's
+    registers and spills."""
+    from splatformer_tpu_torch.data.synthetic import random_scene
+    from splatformer_tpu_torch.kernels import LAUNCHES, reset_launches
+    from splatformer_tpu_torch.kernels.build import library_path
+    from splatformer_tpu_torch.ops import downsample
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    wrong = dict.fromkeys(FPS_ORDERS, 0)
+    for _ in range(4):
+        x = torch.randn((4_000_000, 3), generator=gen, device="cuda")
+        x = x * torch.pow(10.0, torch.rand(x.shape, generator=gen,
+                                           device="cuda") * 6 - 3)
+        sq = x.square()
+        got = sq.sum(dim=1)
+        a, b, c = sq.unbind(1)
+        for name, v in zip(FPS_ORDERS, ((a + b) + c, (a + c) + b,
+                                        a + (b + c))):
+            wrong[name] += int((v != got).sum())
+    m = int(SCENE_PAD * FPS_RATIO)
+    rows = []
+    for live in (SCENE_N, SCENE_N // 2):
+        for seed in FPS_SEEDS:
+            scene = random_scene(np.random.default_rng(700 + seed), SCENE_PAD,
+                                 n_valid=live)
+            k = downsample.furthest_point_sampling(scene.means, scene.mask, m)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            p = downsample.furthest_point_sampling_plain(scene.means,
+                                                         scene.mask, m)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            rows.append({"live": live, "seed": seed,
+                         "differing_picks": int((k != p).sum()),
+                         "ms": cuda_ms(lambda: downsample
+                                       .furthest_point_sampling(
+                                           scene.means, scene.mask, m), 5),
+                         "plain_ms": plain_ms,
+                         "bound_ms": max(10.0 * live * m / PEAK_F32,
+                                         (13.0 * live + 8.0 * m)
+                                         / PEAK_BYTES) * 1e3})
+    rng = np.random.default_rng(9)
+    grid = torch.as_tensor(rng.integers(0, 8, (SCENE_PAD, 3)) / 8.0,
+                           dtype=torch.float32, device="cuda")
+    grid_mask = torch.as_tensor(rng.uniform(size=SCENE_PAD) < 0.9,
+                                device="cuda")
+    ties = int((downsample.furthest_point_sampling(grid, grid_mask, m)
+                != downsample.furthest_point_sampling_plain(grid, grid_mask,
+                                                            m)).sum())
+    # the main path: one launch, and the plain loop never runs on the card
+    plain, calls = downsample.furthest_point_sampling_plain, []
+    downsample.furthest_point_sampling_plain = (
+        lambda *a: calls.append(a) or plain(*a))
+    try:
+        reset_launches()
+        scene = random_scene(np.random.default_rng(700), SCENE_PAD,
+                             n_valid=SCENE_N)
+        feat = scene.features_dc
+        downsample.fps_knn_downsample(scene.means, feat, scene.mask,
+                                      FPS_RATIO)
+        torch.cuda.synchronize()
+        launches = dict(LAUNCHES)
+    finally:
+        downsample.furthest_point_sampling_plain = plain
+    res = fps_resources(library_path("fps"))
+    row = {"phase": "fps", "slots": SCENE_PAD, "picks": m,
+           "sum_order_mismatches": wrong, "runs": rows,
+           "grid_differing_picks": ties, "plain_calls": len(calls),
+           "launches": launches, "kernels": res,
+           "ms": float(np.median([r["ms"] for r in rows
+                                  if r["live"] == SCENE_N])),
+           "plain_ms": float(np.median([r["plain_ms"] for r in rows
+                                        if r["live"] == SCENE_N])),
+           "bound_ms": rows[0]["bound_ms"]}
+    emit(row)
+    if not (wrong[FPS_ORDER] == 0
+            and all(v > 0 for o, v in wrong.items() if o != FPS_ORDER)
+            and all(r["differing_picks"] == 0 for r in rows) and ties == 0
+            and not calls and launches == with_projection(
+                dict.fromkeys(("composite_fwd", "composite_bwd",
+                               "attention_fwd", "attention_bwd"), 0), fps=1)
+            and len(res) == 8):
+        raise AssertionError(f"F1 disagrees with its plain version: {row}")
+    return row
 
 
 def phase_k2():
@@ -1285,7 +1423,8 @@ def phase_merge_reference():
                     "ptv3_fps", "ptv3_voxel", "ptv3_drop"))
                 and launches == with_projection({
                     "composite_fwd": 1, "composite_bwd": 0,
-                    "attention_fwd": 0, "attention_bwd": 0})):
+                    "attention_fwd": 0, "attention_bwd": 0},
+                    fps=int(name == "ptv3_fps"))):
             raise AssertionError(f"merge_reference {name}: {row}")
     shares = [r["identical_selection_share"] for r in rows
               if r["identical_selection_share"] is not None]
@@ -1305,7 +1444,7 @@ def phase_serving_merge(requests, flash=False):
     num_dropped is 0, every merge leaves expected_tokens (ALGM: K' = K,
     its live tokens reported), K1 runs once a request and K3 never (with
     ``flash``: 22 times a request). Returns the summed launches."""
-    from splatformer_tpu_torch.eval_sweep import fps_loop_ms
+    from splatformer_tpu_torch.eval_sweep import fps_ms
     from splatformer_tpu_torch.kernels import LAUNCHES, reset_launches
     from splatformer_tpu_torch.models.feature_predictor import (
         build_feature_predictor)
@@ -1353,8 +1492,8 @@ def phase_serving_merge(requests, flash=False):
         if rec.downsamples:
             row["downsample"], _, row["reduced_points"] = rec.downsamples[0]
         if name == "ptv3_fps":
-            row["fps_loop_ms"] = fps_loop_ms(requests[0].scene,
-                                             info["downsample_ratio"])
+            row["fps_ms"] = fps_ms(requests[0].scene,
+                                   info["downsample_ratio"])
         emit(row)
         k3 = K3_BLOCKS * MERGE_REQUESTS if flash else 0
         expect_merges = (0 if name in ("ptv3_fps", "ptv3_voxel", "ptv3_drop",
@@ -1371,7 +1510,8 @@ def phase_serving_merge(requests, flash=False):
                      or row.get("reduced_points", 0) > 0)
                 and launches == with_projection({
                     "composite_fwd": MERGE_REQUESTS, "composite_bwd": 0,
-                    "attention_fwd": k3, "attention_bwd": 0})):
+                    "attention_fwd": k3, "attention_bwd": 0},
+                    fps=MERGE_REQUESTS if name == "ptv3_fps" else 0)):
             raise AssertionError(f"{phase} {name}: {row}")
         for k in totals:
             totals[k] += launches[k]
@@ -3360,6 +3500,7 @@ def main():
     k1 = phase_k1()
     k2 = phase_k2()
     projection = phase_projection()
+    fps = phase_fps()
     k3 = phase_k3(resources)
     k3_bwd = phase_k3(resources, backward=True)
     phase_reference()
@@ -3467,6 +3608,17 @@ def main():
                         for r in projection},
            "bound_by": "bytes", "library_ms": None}
           for d in ("fwd", "bwd")),
+        {"name": "fps", "route": "cuda",
+         "source": "splatformer_tpu_torch/csrc/fps.cu", "replaces": None,
+         "launches": merge_launches["fps"], "phase_launches":
+         fps["launches"]["fps"], "loop_launches": loop_launches["fps"],
+         "fit_launches": fit_launches["fps"],
+         "capture_launches": capture_launches["fps"],
+         "diag_launches": diag_launches["fps"],
+         "parallel_launches": parallel_launches["fps"],
+         "max_abs_err": None, "ms": fps["ms"], "plain_ms": fps["plain_ms"],
+         "bound_ms": fps["bound_ms"], "bound_by": "ops",
+         "library_ms": None},
         k3_entry("attention_fwd",
                  "splatformer_tpu_torch/csrc/attention_fwd.cu",
                  f"{flash_src}:342 (called at "

@@ -107,9 +107,9 @@ def variant_info(algo: str, r: float, info: dict, scenes, pad: int) -> dict:
     return info
 
 
-def fps_loop_ms(scene, ratio: float) -> float:
-    """Milliseconds of the FPS loop alone on ``scene`` at ``ratio``
-    (synchronised on the card)."""
+def fps_ms(scene, ratio: float) -> float:
+    """Milliseconds of FPS alone on ``scene`` at ``ratio`` (the F1 kernel
+    on the card, the plain loop on the CPU; synchronised on the card)."""
     from splatformer_tpu_torch.ops.downsample import furthest_point_sampling
     mask = scene.valid_mask()
     m = max(1, int(scene.num_points * ratio))
@@ -237,7 +237,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                 model = build_feature_predictor(mcfg, device=device)
                 model.load_state_dict(weights)
                 if algo == "fps":
-                    print(json.dumps({"fps_loop_ms": fps_loop_ms(
+                    print(json.dumps({"fps_ms": fps_ms(
                         scenes[0][1].scene,
                         mcfg.additional_info["downsample_ratio"]),
                         "r": r}), flush=True)

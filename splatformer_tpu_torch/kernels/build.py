@@ -29,7 +29,8 @@ SOURCES = {"composite_fwd": "composite_fwd.cu",
            "attention_fwd": "attention_fwd.cu",
            "attention_bwd": "attention_bwd.cu",
            "projection_fwd": "projection_fwd.cu",
-           "projection_bwd": "projection_bwd.cu"}
+           "projection_bwd": "projection_bwd.cu",
+           "fps": "fps.cu"}
 # kernel library name -> headers under csrc/ that its source includes
 INCLUDES = {"composite_fwd": ("composite_common.cuh",),
             "composite_bwd": ("composite_common.cuh",),
@@ -38,18 +39,19 @@ INCLUDES = {"composite_fwd": ("composite_common.cuh",),
 
 _ARCH = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3")
 _SHARED = ("-shared", "-Xcompiler", "-fPIC")
-# kernel library name -> nvcc flags. K1, K2 and the projection pair P1
-# take -fmad=false: no contraction of a*b+c into one FMA, so each product
-# and sum rounds as the plain PyTorch version's separate elementwise ops do
-# (bit-exact K1 and P1-fwd). K3 is held to a tolerance, and its inner
-# products run as FMAs at full rate.
+# kernel library name -> nvcc flags. K1, K2, the projection pair P1 and
+# FPS (F1) take -fmad=false: no contraction of a*b+c into one FMA, so each
+# product and sum rounds as the plain PyTorch version's separate
+# elementwise ops do (bit-exact K1, P1-fwd and F1). K3 is held to a
+# tolerance, and its inner products run as FMAs at full rate.
 _NO_FMAD = _ARCH + ("-fmad=false",) + _SHARED
 NVCC_FLAGS = {"composite_fwd": _NO_FMAD,
               "composite_bwd": _NO_FMAD,
               "attention_fwd": _ARCH + _SHARED,
               "attention_bwd": _ARCH + _SHARED,
               "projection_fwd": _NO_FMAD,
-              "projection_bwd": _NO_FMAD}
+              "projection_bwd": _NO_FMAD,
+              "fps": _NO_FMAD}
 
 # host library name -> C++ source under csrc/ (standard library only)
 HOST_SOURCES = {"jpeg_decode": "jpeg_decode.cpp"}

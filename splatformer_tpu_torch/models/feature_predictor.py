@@ -164,8 +164,9 @@ class FeaturePredictor(nn.Module):
             uniform = ((lambda shape: downsample_scores)
                        if downsample_scores is not None
                        else draw if self.training else None)
-            coord, feat, mask_ds, up = downsample_dispatch(
-                info["downsample"], info, coord, feat, mask, uniform)
+            with tracing.span("refine.downsample"):
+                coord, feat, mask_ds, up = downsample_dispatch(
+                    info["downsample"], info, coord, feat, mask, uniform)
 
         perm = None
         if self.training and self.backbone_type == "PT":

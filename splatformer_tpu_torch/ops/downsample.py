@@ -9,10 +9,11 @@ multiple of 128 (at most N rounded up), a mask for the live rows, and a
 waste bucket M for masked or overflowing points. Plain PyTorch: the JAX
 package computes all of this in XLA outside any kernel.
 
-  * FPS is m sequential steps (a ``lax.scan`` in the JAX package), here a
-    host loop of a few launches a step with no synchronisation: at 100k
-    points and ratio 0.35 that is 35k steps. A fused kernel is queued in
-    ROADMAP.md.
+  * FPS is m sequential steps (a ``lax.scan`` in the JAX package). On the
+    card they are one launch of the F1 kernel (kernels/fps.py); on the CPU,
+    and as the kernel's oracle on any device, a loop of a few launches a
+    step (``furthest_point_sampling_plain``), which the kernel repeats bit
+    for bit.
   * ``nearest_idx`` relies on float32 matmuls (the JAX package asks for
     ``Precision.HIGHEST``); the package keeps TF32 off for this.
   * ``random`` takes its uniform scores from ``uniform`` (a callable
@@ -28,6 +29,8 @@ from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
+from splatformer_tpu_torch import tracing
+from splatformer_tpu_torch.kernels.fps import furthest_point_sampling_kernel
 from splatformer_tpu_torch.ops.segment_ops import segment_sum
 
 _CHUNK = 2048
@@ -59,7 +62,19 @@ def nearest_idx(queries: torch.Tensor, refs: torch.Tensor,
 def furthest_point_sampling(coord: torch.Tensor, mask: torch.Tensor,
                             m: int) -> torch.Tensor:
     """(N, 3) -> (m,) int64 centroid indices by iterative FPS, starting at
-    the first valid point; masked points are never chosen."""
+    the first valid point; masked points are never chosen. CUDA tensors
+    launch the F1 kernel or raise; CPU tensors take the plain loop."""
+    if coord.device.type == "cpu":
+        return furthest_point_sampling_plain(coord, mask, m)
+    if coord.device.type != "cuda":
+        raise ValueError(f"no FPS kernel for device {coord.device}")
+    return furthest_point_sampling_kernel(coord, mask, m)
+
+
+def furthest_point_sampling_plain(coord: torch.Tensor, mask: torch.Tensor,
+                                  m: int) -> torch.Tensor:
+    """The kernel's function as a loop of a few launches a pick, on any
+    device: the picks of ``furthest_point_sampling``."""
     # masked points sit at -inf and stay there (min(-inf, d) = -inf)
     dist = torch.where(mask, 1e10, -torch.inf)
     farthest = mask.to(torch.int8).argmax().reshape(1)
@@ -88,7 +103,9 @@ def fps_knn_downsample(coord, feat, mask, ratio: float, patch_mult: int = 128):
     n = coord.shape[0]
     m_req = max(1, int(n * ratio))
     m = min(_round_up(m_req, patch_mult), _round_up(n, patch_mult))
-    centroids = furthest_point_sampling(coord, mask, min(m_req, m))
+    picks = min(m_req, m)
+    tracing.count("refine.fps.picks", picks)
+    centroids = furthest_point_sampling(coord, mask, picks)
     c_coord = torch.cat([coord.index_select(0, centroids),
                          coord.new_zeros((m - centroids.shape[0], 3))])
     c_mask = torch.arange(m, device=coord.device) < torch.clamp(

@@ -73,7 +73,7 @@ def test_sweep_on_a_tiny_run(tmp_path, monkeypatch, capsys):
         assert by[(algo, "0.5")] == by[(algo, "0.9")], algo
     assert by[("fps", "0.5")] != by[("fps", "0.9")]
     out = capsys.readouterr().out
-    assert out.count('"fps_loop_ms"') == 2 and "sweep complete" in out
+    assert out.count('"fps_ms"') == 2 and "sweep complete" in out
 
     # done rows are skipped; an unknown algorithm fails the process
     assert eval_sweep.main(sweep + ["--algos", "tome,no_such"]) == 1

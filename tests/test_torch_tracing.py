@@ -21,6 +21,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from splatformer_tpu_torch import tracing  # noqa: E402
+from splatformer_tpu_torch.kernels import LAUNCHES  # noqa: E402
 from splatformer_tpu_torch.data.synthetic import (orbit_cameras,  # noqa: E402
                                                   random_scene)
 from splatformer_tpu_torch.models.feature_predictor import (  # noqa: E402
@@ -210,6 +211,28 @@ def test_counters_equal_the_harness_and_the_diagnostics(info, monkeypatch):
         for kind in ("points", "pairs", "rows"):
             assert got[f"refine.{kind}.dec{s}"] == got[f"refine.{kind}.enc{s}"]
     assert len(got) == 3 * (2 * n_enc - 1)
+
+
+def test_downsampling_has_its_span_and_the_picks_counter():
+    """A traced CPU refine of a tiny ptv3_fps model: ``refine.downsample``
+    opens first under ``refine``, and ``refine.fps.picks`` holds FPS's m
+    (int(256 x 0.35) = 89) in the request's id; on the CPU the plain loop
+    runs, so the FPS kernel's launch count stays put."""
+    model = tiny_model({"downsample": "fps", "downsample_ratio": 0.35}).eval()
+    scene = tiny_batch().scene
+    before = LAUNCHES["fps"]
+    tracing.enable("cpu")
+    with torch.inference_mode():
+        model(scene)
+    snap = tracing.snapshot()
+    [(name, kids)] = tree_of(snap["spans"])
+    assert name == "refine" and kids[0] == ("refine.downsample", [])
+    assert kids[1][0] == "refine.serialize"
+    assert_nested(snap["spans"])
+    picks = [(c["value"], c["id"]) for c in snap["counters"]
+             if c["name"] == "refine.fps.picks"]
+    assert picks == [(89, snap["spans"][0]["id"])]
+    assert LAUNCHES["fps"] == before
 
 
 @pytest.mark.parametrize("info", [{}, TOME], ids=["base", "tome"])
